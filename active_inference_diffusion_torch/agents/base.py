@@ -11,17 +11,14 @@ from typing import Mapping, Optional, Tuple
 
 import torch
 
-from active_inference_diffusion_tpu.configs.config import (
-    ActiveInferenceConfig,
-    TrainingConfig,
-)
-
 from ..bridge import load_jax_params
+from ..configs.config import ActiveInferenceConfig, TrainingConfig
 from ..core.active_inference import DiffusionActiveInference
 
 
 class BaseAgent:
-    """Holds the configs, the model container and the exploration noise scale."""
+    """Holds the configs, the model container and the exploration noise scale.
+    ``device`` None means CUDA, and raises where there is none."""
 
     def __init__(
         self,

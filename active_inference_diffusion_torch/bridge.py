@@ -23,11 +23,13 @@ import torch
 from torch import nn
 
 # Groups of the JAX parameter tree this port loads, and the module each fills.
-PORTED_GROUPS = {"score": "score_network", "policy": "policy_network"}
+PORTED_GROUPS = {
+    "score": "score_network", "policy": "policy_network", "decoder": "observation_decoder",
+}
 # Groups the JAX agent holds that later ports will load (training and the
 # heads beyond acting).
 UNPORTED_GROUPS = (
-    "diffusion", "value", "dynamics", "decoder", "reward", "continuation",
+    "diffusion", "value", "dynamics", "reward", "continuation",
     "posterior", "epistemic", "feature_decoder",
 )
 

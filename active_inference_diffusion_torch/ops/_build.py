@@ -1,9 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/denoise_sweep.cu`` has a plain C interface. It is compiled with
-``nvcc`` for ``sm_90a`` into ``build/aid_torch_kernels/libdenoise_sweep.so``
-at the repository root, on first use, and rebuilt whenever the source or the
-flags change (their SHA-256 is kept beside the library). It is loaded with
+Each source under ``csrc/`` (``denoise_sweep.cu``: v1; ``denoise_sweep_v2.cu``:
+v2; both include ``sweep_common.cuh``) has a plain C interface. It is
+compiled with ``nvcc`` for ``sm_90a`` into its own shared library
+``build/aid_torch_kernels/lib<name>.so`` at the repository root, on first
+use, and rebuilt whenever its source, the shared header or the flags change
+(their SHA-256 is kept beside the library). Stale libraries are compiled
+together, one ``nvcc`` each, started at once. A library is loaded with
 ``ctypes``; every pointer and the stream are passed as ``c_void_p``.
 """
 
@@ -17,15 +20,29 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Dict
 
 _PACKAGE = Path(__file__).resolve().parents[1]
-SOURCE = _PACKAGE / "csrc" / "denoise_sweep.cu"
+CSRC = _PACKAGE / "csrc"
+SOURCES = {
+    "denoise_sweep": CSRC / "denoise_sweep.cu",
+    "denoise_sweep_v2": CSRC / "denoise_sweep_v2.cu",
+}
+HEADERS = (CSRC / "sweep_common.cuh",)
 BUILD_DIR = _PACKAGE.parent / "build" / "aid_torch_kernels"
-LIBRARY = BUILD_DIR / "libdenoise_sweep.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def build_log(name: str) -> Path:
+    """nvcc's output for one library, ptxas's register and spill report included."""
+    return BUILD_DIR / f"{name}.build.log"
 
 
 def _nvcc() -> str:
@@ -36,41 +53,66 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
-def build() -> Path:
-    """Compile the kernel library unless an up-to-date one exists."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    stamp = LIBRARY.with_suffix(".so.sha256")
-    if LIBRARY.exists() and stamp.exists() and stamp.read_text() == digest:
-        return LIBRARY
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        target = Path(tmp) / LIBRARY.name
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(target), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(target, LIBRARY)
-    stamp.write_text(digest)
-    return LIBRARY
+def _digest(name: str) -> str:
+    data = SOURCES[name].read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+    return hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()
+
+
+def build() -> Dict[str, Path]:
+    """Compile every kernel library that is missing or stale, all at once;
+    return each library's path."""
+    stale = {}
+    for name in SOURCES:
+        stamp = library_path(name).with_suffix(".so.sha256")
+        digest = _digest(name)
+        if not (library_path(name).exists() and stamp.exists() and stamp.read_text() == digest):
+            stale[name] = digest
+    if stale:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            procs = {
+                name: subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o",
+                     str(Path(tmp) / library_path(name).name), str(SOURCES[name])],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+                for name in stale
+            }
+            failed = []
+            for name, proc in procs.items():
+                output, _ = proc.communicate()
+                build_log(name).write_text(output)
+                if proc.returncode != 0:
+                    failed.append(f"{SOURCES[name].name} ({proc.returncode}):\n{output}")
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            for name, digest in stale.items():
+                os.replace(Path(tmp) / library_path(name).name, library_path(name))
+                library_path(name).with_suffix(".so.sha256").write_text(digest)
+    return {name: library_path(name) for name in SOURCES}
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    from .denoise import _TrunkOffsets
+def load_library(name: str) -> ctypes.CDLL:
+    """The built kernel library ``name`` (a key of ``SOURCES``) with its C
+    signatures declared."""
+    from .denoise import _TrunkOffsets, _TrunkOffsetsV2
 
-    lib = ctypes.CDLL(str(build()))
-    p = ctypes.c_void_p
-    lib.aid_denoise_sweep.argtypes = [
-        p, p, p, p,  # z0, obs_emb, t_embs, coeffs
-        p, _TrunkOffsets, p, p,  # weight buffer, offsets, seed, out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B D H L K
-        ctypes.c_float, ctypes.c_int, ctypes.c_size_t, p,  # mult, stochastic, smem, stream
-    ]
-    lib.aid_denoise_sweep.restype = ctypes.c_int
+    lib = ctypes.CDLL(str(build()[name]))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    tail = [i, i, i, i, i, ctypes.c_float, i, ctypes.c_size_t, p]  # B D H L K, mult, stochastic, smem, stream
+    if name == "denoise_sweep":
+        functions = ("aid_denoise_sweep", "aid_denoise_sweep_bf16")
+        # z0, obs_emb, t_embs, coeffs, weights, biases, offsets, seed, out
+        head = [p, p, p, p, p, p, _TrunkOffsets, p, p]
+    else:
+        functions = ("aid_denoise_sweep_v2", "aid_denoise_sweep_v2_bf16")
+        # z0, obs_emb, t_embs, coeffs, weights, biases, offsets, seed, scratch, out
+        head = [p, p, p, p, p, p, _TrunkOffsetsV2, p, p, p]
+    for fn in functions:
+        getattr(lib, fn).argtypes = head + tail
+        getattr(lib, fn).restype = ctypes.c_int
     lib.aid_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aid_cuda_error_string.restype = ctypes.c_char_p
     return lib

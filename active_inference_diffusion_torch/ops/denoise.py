@@ -1,24 +1,34 @@
-"""The fused K-step reverse-diffusion sweep: a CUDA kernel and its plain version.
+"""The fused K-step reverse-diffusion sweep: CUDA kernels and their plain version.
 
-Counterpart of ``active_inference_diffusion_tpu/ops/denoise.py`` (v1 kernel,
-``_denoise_kernel`` via ``fused_denoise_sweep``). One launch runs the whole
-belief sweep: for each of K steps the DiT trunk (latent_proj, L adaLN blocks,
-final adaLN, out head), the score clip and the p_sample update with in-kernel
-Gaussian noise.
+Counterpart of ``active_inference_diffusion_tpu/ops/denoise.py``: the v1
+kernel ``_denoise_kernel`` (via ``fused_denoise_sweep``) and the v2 kernel
+``_denoise_kernel_v2`` (via ``fused_denoise_sweep_v2``), each with float32
+or bfloat16 matmul weights. One launch runs the whole belief sweep: for each
+of K steps the DiT trunk (latent_proj, L adaLN blocks, final adaLN, out
+head), the score clip and the p_sample update with in-kernel Gaussian noise.
 
-- ``fused_denoise_sweep`` is the wrapper. For a CUDA tensor it launches
-  ``csrc/denoise_sweep.cu`` (built on first use by ``ops/_build.py``) or
-  raises; for a CPU tensor it runs ``denoise_sweep_reference``. It counts
-  its kernel launches in ``fused_denoise_sweep.launches``.
+- ``fused_denoise_sweep`` and ``fused_denoise_sweep_v2`` are the wrappers.
+  For a CUDA tensor they launch the kernel of the packed weights' variant
+  and type (``KERNELS``; sources ``csrc/denoise_sweep.cu`` and
+  ``csrc/denoise_sweep_v2.cu``, built on first use by ``ops/_build.py``) or
+  raise; for a CPU tensor they run ``denoise_sweep_reference``. Launches are
+  counted per kernel in ``LAUNCHES``.
+- bfloat16 mode (``compute_dtype="bfloat16"``): the matmul weights (the
+  ``*_w`` arrays) are stored in bfloat16, the activation operand of every
+  product is rounded to bfloat16, products are exact and sums float32.
+  Biases, LayerNorm, silu(cond), the score clip and the p_sample update stay
+  float32. This is what the TPU kernels' ``x.astype(w.dtype)`` computes.
 - The noise is a counter-based Philox4x32-10 followed by Box-Muller, keyed by
   (seed, global batch row) with counter (sweep step, latent column), so a
-  draw does not depend on how the batch is tiled. ``philox_normal`` is the
-  same generator in plain integer tensor ops: the kernel's stochastic sweep
-  and the plain one agree to float tolerance. Against the JAX package (TPU
-  PRNG bits) the stochastic sweep agrees in distribution only.
-- Trunk weights are packed once per parameter set into one contiguous
-  float32 buffer (``packed_trunk_weights``), cached on the score network
-  and rebuilt when any of its parameters changes.
+  draw depends neither on how the batch is tiled nor on the variant.
+  ``philox_normal`` is the same generator in plain integer tensor ops: each
+  kernel's stochastic sweep and the plain one agree to float tolerance.
+  Against the JAX package (TPU PRNG bits) the stochastic sweep agrees in
+  distribution only.
+- Trunk weights are packed once per parameter set, variant and type into
+  two contiguous buffers (``packed_trunk_weights``): the ``*_w`` arrays in
+  the weight type, the ``*_b`` arrays in float32. The pack is cached on the
+  score network and rebuilt when any of its parameters changes.
 
 Numerics: LayerNorm eps 1e-6 and tanh-approximate GELU, as the Flax modules.
 """
@@ -35,19 +45,44 @@ import torch.nn.functional as F
 from ..core.schedules import DiffusionSchedule
 from ..models.common import LN_EPS
 
-# Batch rows per thread block; must equal TB in csrc/denoise_sweep.cu.
+# Batch rows per thread block; must equal TB in csrc/sweep_common.cuh.
 ROWS_PER_BLOCK = 16
 # Dynamic shared memory one block may use on an H100 (227 KB).
 MAX_SMEM_BYTES = 232448
 
-# Packed-buffer order; csrc/denoise_sweep.cu's TrunkOffsets lists the same
-# fields in the same order.
-PACK_ORDER = (
-    "latent_proj_w", "latent_proj_b",
-    "mod1_w", "mod1_b", "v_w", "v_b", "o_w", "o_b",
-    "mod2_w", "mod2_b", "f1_w", "f1_b", "f2_w", "f2_b",
-    "modf_w", "modf_b", "out1_w", "out1_b", "out2_w",
-)
+# Packed-buffer order per variant; the kernels' TrunkOffsets / TrunkOffsetsV2
+# list the same fields in the same order.
+PACK_ORDER = {
+    "v1": (
+        "latent_proj_w", "latent_proj_b",
+        "mod1_w", "mod1_b", "v_w", "v_b", "o_w", "o_b",
+        "mod2_w", "mod2_b", "f1_w", "f1_b", "f2_w", "f2_b",
+        "modf_w", "modf_b", "out1_w", "out1_b", "out2_w",
+    ),
+    "v2": (
+        "latent_proj_w", "latent_proj_b", "mod_w", "mod_b", "vo_w", "vo_b",
+        "f1_w", "f1_b", "f2_w", "f2_b", "out1_w", "out1_b", "out2_w",
+    ),
+}
+
+# kernel name -> (variant, weight type, library, C function)
+KERNELS = {
+    "denoise_sweep_v1_f32": ("v1", torch.float32, "denoise_sweep", "aid_denoise_sweep"),
+    "denoise_sweep_v1_bf16": ("v1", torch.bfloat16, "denoise_sweep", "aid_denoise_sweep_bf16"),
+    "denoise_sweep_v2_f32": ("v2", torch.float32, "denoise_sweep_v2", "aid_denoise_sweep_v2"),
+    "denoise_sweep_v2_bf16": (
+        "v2", torch.bfloat16, "denoise_sweep_v2", "aid_denoise_sweep_v2_bf16",
+    ),
+}
+# Kernel launches, counted by the wrappers where they launch and nowhere else.
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def kernel_name(variant: str, dtype: torch.dtype) -> str:
+    for name, (v, t, _, _) in KERNELS.items():
+        if (v, t) == (variant, dtype):
+            return name
+    raise ValueError(f"no sweep kernel for variant {variant!r} with {dtype} weights")
 
 
 # ---------------------------------------------------------------------------
@@ -115,71 +150,140 @@ def extract_trunk_weights(score_net) -> Dict[str, torch.Tensor]:
     }
 
 
+def extract_trunk_weights_v2(w: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """v1 weights (``extract_trunk_weights``) restructured for the v2 kernel,
+    as ``extract_trunk_weights_v2`` of the JAX package: ``vo_w = Wv @ Wo``
+    and ``vo_b = bv @ Wo + bo`` per block, and all 2L+1 modulation products
+    side by side, ``mod_w`` (H, L*4H + 2H) = [mod1_0 | mod2_0 | ... |
+    mod_final]. The products are composed in float32 on the CPU, so no TF32
+    enters whatever the card's matmul flags say."""
+    num_layers = w["v_w"].shape[0]
+
+    def compose(a, b):
+        return torch.matmul(a.cpu().float(), b.cpu().float()).to(a.device)
+
+    mods, bmods = [], []
+    for l in range(num_layers):
+        mods += [w["mod1_w"][l], w["mod2_w"][l]]
+        bmods += [w["mod1_b"][l], w["mod2_b"][l]]
+    mods.append(w["modf_w"])
+    bmods.append(w["modf_b"])
+    return {
+        "latent_proj_w": w["latent_proj_w"],
+        "latent_proj_b": w["latent_proj_b"],
+        "mod_w": torch.cat(mods, dim=1),
+        "mod_b": torch.cat(bmods, dim=0),
+        "vo_w": compose(w["v_w"], w["o_w"]),
+        "vo_b": compose(w["v_b"][:, None, :], w["o_w"])[:, 0] + w["o_b"],
+        "f1_w": w["f1_w"],
+        "f1_b": w["f1_b"],
+        "f2_w": w["f2_w"],
+        "f2_b": w["f2_b"],
+        "out1_w": w["out1_w"],
+        "out1_b": w["out1_b"],
+        "out2_w": w["out2_w"],
+        "output_multiplier": w["output_multiplier"],
+    }
+
+
 class PackedTrunk(NamedTuple):
-    """Trunk weights in one contiguous float32 buffer.
+    """Trunk weights of one sweep variant in two contiguous buffers:
+    ``weights`` holds the ``*_w`` arrays in the weight type (float32 or
+    bfloat16), ``biases`` the ``*_b`` arrays in float32.
 
-    ``offsets[name] = (float offset, shape)``; each entry starts on a
-    16-byte boundary. ``output_multiplier`` is a plain float."""
+    ``offsets[name] = (element offset in its buffer, shape)``; each entry
+    starts on a 16-byte boundary. ``output_multiplier`` is a plain float."""
 
-    buffer: torch.Tensor
+    variant: str
+    weights: torch.Tensor
+    biases: torch.Tensor
     offsets: Dict[str, Tuple[int, Tuple[int, ...]]]
     latent_dim: int
     hidden_dim: int
     num_layers: int
     output_multiplier: float
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.weights.dtype
+
     def views(self) -> Dict[str, torch.Tensor]:
         return {
-            name: self.buffer[off : off + math.prod(shape)].view(shape)
+            name: (self.weights if name.endswith("_w") else self.biases)[
+                off : off + math.prod(shape)
+            ].view(shape)
             for name, (off, shape) in self.offsets.items()
         }
 
 
-def pack_trunk_weights(weights: Dict[str, torch.Tensor]) -> PackedTrunk:
-    """Pack ``extract_trunk_weights`` output into a ``PackedTrunk``."""
+def pack_trunk_weights(
+    weights: Dict[str, torch.Tensor], variant: str = "v1", dtype: torch.dtype = torch.float32
+) -> PackedTrunk:
+    """Pack ``extract_trunk_weights`` output (v1) or its
+    ``extract_trunk_weights_v2`` form (v2) into a ``PackedTrunk`` whose
+    matmul weights are cast to ``dtype``."""
     offsets: Dict[str, Tuple[int, Tuple[int, ...]]] = {}
-    parts: List[torch.Tensor] = []
-    cursor = 0
-    for name in PACK_ORDER:
-        t = weights[name].to(torch.float32).reshape(-1)
-        offsets[name] = (cursor, tuple(weights[name].shape))
-        pad = -t.numel() % 4
-        parts.append(t)
+    parts: Dict[bool, List[torch.Tensor]] = {True: [], False: []}
+    cursor = {True: 0, False: 0}
+    for name in PACK_ORDER[variant]:
+        is_w = name.endswith("_w")
+        t = weights[name].to(dtype if is_w else torch.float32).reshape(-1)
+        offsets[name] = (cursor[is_w], tuple(weights[name].shape))
+        pad = -t.numel() % (16 // t.element_size())
+        parts[is_w].append(t)
         if pad:
-            parts.append(t.new_zeros(pad))
-        cursor += t.numel() + pad
+            parts[is_w].append(t.new_zeros(pad))
+        cursor[is_w] += t.numel() + pad
     lp = weights["latent_proj_w"]
     return PackedTrunk(
-        buffer=torch.cat(parts).contiguous(),
+        variant=variant,
+        weights=torch.cat(parts[True]).contiguous(),
+        biases=torch.cat(parts[False]).contiguous(),
         offsets=offsets,
         latent_dim=lp.shape[0],
         hidden_dim=lp.shape[1],
-        num_layers=weights["v_w"].shape[0],
+        num_layers=weights["f1_w"].shape[0],
         output_multiplier=float(weights["output_multiplier"].reshape(-1)[0]),
     )
 
 
-def packed_trunk_weights(score_net) -> PackedTrunk:
-    """The score network's ``PackedTrunk``, cached on the module. The cache
-    key holds every parameter's storage pointer and version counter, so any
-    load or in-place update of the weights rebuilds the buffer."""
+def packed_trunk_weights(
+    score_net, variant: str = "v1", dtype: torch.dtype = torch.float32
+) -> PackedTrunk:
+    """The score network's ``PackedTrunk`` for one variant and weight type,
+    cached on the module per (variant, type). The cache key holds every
+    parameter's storage pointer and version counter, so any load or
+    in-place update of the weights rebuilds the pack."""
     key = tuple((p.data_ptr(), p._version) for p in score_net.parameters())
-    cached = getattr(score_net, "_packed_trunk", None)
+    cache = score_net.__dict__.setdefault("_packed_trunks", {})
+    cached = cache.get((variant, dtype))
     if cached is not None and cached[0] == key:
         return cached[1]
     with torch.no_grad():
-        packed = pack_trunk_weights(extract_trunk_weights(score_net))
-    score_net._packed_trunk = (key, packed)
+        w = extract_trunk_weights(score_net)
+        if variant == "v2":
+            w = extract_trunk_weights_v2(w)
+        packed = pack_trunk_weights(w, variant, dtype)
+    cache[(variant, dtype)] = (key, packed)
     return packed
 
 
-def sweep_smem_bytes(latent_dim: int, hidden_dim: int) -> int:
-    """Dynamic shared memory of one kernel block: for TB rows, the latent
-    and score (each padded to a multiple of 4 columns), the residual stream,
-    the normalised input, silu(cond) (H each), the modulation (2H) and the
-    MLP hidden (4H), all float32. Mirrors ``smem_floats`` in the kernel."""
+def sweep_smem_bytes(latent_dim: int, hidden_dim: int, variant: str = "v1") -> int:
+    """Dynamic shared memory of one kernel block, float32 throughout: for TB
+    rows, the latent and score (each padded to a multiple of 4 columns), the
+    residual stream, the normalised input, silu(cond) (H each) and the MLP
+    hidden (4H); v1 also the modulation (2H), which v2 keeps in device
+    scratch. Mirrors ``smem_floats`` in each kernel."""
     d_pad = -(-latent_dim // 4) * 4
-    return 4 * ROWS_PER_BLOCK * (2 * d_pad + 9 * hidden_dim)
+    per_row = 2 * d_pad + (9 if variant == "v1" else 7) * hidden_dim
+    return 4 * ROWS_PER_BLOCK * per_row
+
+
+def sweep_v2_scratch_floats(batch: int, hidden_dim: int, num_layers: int) -> int:
+    """Device scratch of the v2 kernel: per block, TB rows of all 2L+1
+    modulations (L*4H + 2H floats)."""
+    blocks = -(-batch // ROWS_PER_BLOCK)
+    return blocks * ROWS_PER_BLOCK * (num_layers * 4 + 2) * hidden_dim
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +327,7 @@ def philox_normal(
     seed: torch.Tensor, rows: torch.Tensor, step: int, cols: torch.Tensor
 ) -> torch.Tensor:
     """Standard normals, one per (row, col), for one sweep step; the draw of
-    the kernel's ``philox_normal``. Key (seed, row), counter (step, col, 0,
+    the kernels' ``philox_normal``. Key (seed, row), counter (step, col, 0,
     0); u1 = (r0 >> 8 + 1) / 2**24 in (0, 1], u2 = (r1 >> 8) / 2**24 in
     [0, 1), z = sqrt(-2 ln u1) cos(2 pi u2)."""
     k0 = seed.to(torch.int64) & _MASK32
@@ -254,33 +358,57 @@ def denoise_sweep_reference(
     deterministic: bool = False,
     noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device. ``noise`` (K, B,
-    D), when given, replaces the Philox draw (for tests that feed both
-    packages the same numbers)."""
-    w = weights.views()
+    """Plain PyTorch version of the kernels, on any device, for either
+    variant and weight type of ``weights``. ``noise`` (K, B, D), when given,
+    replaces the Philox draw (for tests that feed both packages the same
+    numbers). With bfloat16 weights each product's activation operand is
+    rounded to bfloat16 and the product taken in float32 (exact); on the
+    card that needs TF32 off, as the callers set it."""
+    views = weights.views()
+    w = {name: v.float() for name, v in views.items()}
+    rounded = weights.dtype != torch.float32
     h_dim = weights.hidden_dim
     coeffs = sweep_coefficients(schedule, num_steps, deterministic)
     mult = weights.output_multiplier
     rows = torch.arange(z0.shape[0], device=z0.device)[:, None]
     cols = torch.arange(z0.shape[1], device=z0.device)[None, :]
 
-    def adaln(x, sc, mod_w, mod_b):
-        mod = sc @ mod_w + mod_b
+    def mm(x, name, l=None, bias=None):
+        if rounded:
+            x = x.to(weights.dtype).float()
+        y = x @ (w[name] if l is None else w[name][l])
+        if bias is not None:
+            y = y + (w[bias] if l is None else w[bias][l])
+        return y
+
+    def adaln(x, mod):
         return F.layer_norm(x, (h_dim,), eps=LN_EPS) * (1.0 + mod[:, :h_dim]) + mod[:, h_dim:]
 
+    def trunk_v1(z, sc):
+        h = mm(z, "latent_proj_w", bias="latent_proj_b")
+        for l in range(num_layers):
+            x1 = adaln(h, mm(sc, "mod1_w", l, "mod1_b"))
+            h = h + mm(mm(x1, "v_w", l, "v_b"), "o_w", l, "o_b")
+            x2 = adaln(h, mm(sc, "mod2_w", l, "mod2_b"))
+            h = h + mm(F.gelu(mm(x2, "f1_w", l, "f1_b"), approximate="tanh"), "f2_w", l, "f2_b")
+        return adaln(h, mm(sc, "modf_w", bias="modf_b"))
+
+    def trunk_v2(z, sc):
+        mods = mm(sc, "mod_w", bias="mod_b")
+        h = mm(z, "latent_proj_w", bias="latent_proj_b")
+        for l in range(num_layers):
+            base = 4 * h_dim * l
+            h = h + mm(adaln(h, mods[:, base : base + 2 * h_dim]), "vo_w", l, "vo_b")
+            x2 = adaln(h, mods[:, base + 2 * h_dim : base + 4 * h_dim])
+            h = h + mm(F.gelu(mm(x2, "f1_w", l, "f1_b"), approximate="tanh"), "f2_w", l, "f2_b")
+        return adaln(h, mods[:, 4 * h_dim * num_layers :])
+
+    trunk = trunk_v1 if weights.variant == "v1" else trunk_v2
     z = z0
     for i in range(num_steps):
         sc = F.silu(obs_emb + t_embs[i][None, :])
-        h = z @ w["latent_proj_w"] + w["latent_proj_b"]
-        for l in range(num_layers):
-            x1 = adaln(h, sc, w["mod1_w"][l], w["mod1_b"][l])
-            h = h + ((x1 @ w["v_w"][l] + w["v_b"][l]) @ w["o_w"][l] + w["o_b"][l])
-            x2 = adaln(h, sc, w["mod2_w"][l], w["mod2_b"][l])
-            mlp = F.gelu(x2 @ w["f1_w"][l] + w["f1_b"][l], approximate="tanh")
-            h = h + (mlp @ w["f2_w"][l] + w["f2_b"][l])
-        hf = adaln(h, sc, w["modf_w"], w["modf_b"])
-        o1 = F.silu(hf @ w["out1_w"] + w["out1_b"])
-        score = torch.clamp(o1 @ w["out2_w"], -10.0, 10.0) * mult
+        o1 = F.silu(mm(trunk(z, sc), "out1_w", bias="out1_b"))
+        score = torch.clamp(mm(o1, "out2_w"), -10.0, 10.0) * mult
 
         s1, s2, c1, c2, sd, mask = coeffs[i, :6]
         pz0 = (z + s1 * score) * s2
@@ -293,7 +421,11 @@ def denoise_sweep_reference(
 
 
 class _TrunkOffsets(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_longlong) for name in PACK_ORDER]
+    _fields_ = [(name, ctypes.c_longlong) for name in PACK_ORDER["v1"]]
+
+
+class _TrunkOffsetsV2(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_longlong) for name in PACK_ORDER["v2"]]
 
 
 def _check_args(schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers):
@@ -302,13 +434,17 @@ def _check_args(schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_lay
     device = z0.device
     tensors = {
         "z0": z0, "obs_emb": obs_emb, "t_embs": t_embs,
-        "weights.buffer": weights.buffer, "schedule": schedule.betas,
+        "weights.biases": weights.biases, "schedule": schedule.betas,
     }
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, z0 on {device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if weights.weights.device != device:
+        raise ValueError(f"weights.weights is on {weights.weights.device}, z0 on {device}")
+    if weights.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"matmul weights must be float32 or bfloat16, got {weights.dtype}")
     if seed.device != device or seed.dtype != torch.int64 or seed.dim() != 0:
         raise TypeError("seed must be a 0-d int64 tensor on z0's device")
     if obs_emb.shape != (b, h) or t_embs.shape != (num_steps, h):
@@ -322,6 +458,64 @@ def _check_args(schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_lay
         raise ValueError(f"num_steps={num_steps} outside 1..{schedule.num_steps}")
 
 
+def _sweep(variant, schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers,
+           deterministic):
+    """Check, then run the plain version (CPU) or launch the kernel of
+    (variant, weight type) (CUDA) and count the launch."""
+    if weights.variant != variant:
+        raise ValueError(f"the {variant} sweep got weights packed for {weights.variant}")
+    _check_args(schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers)
+    if z0.device.type == "cpu":
+        return denoise_sweep_reference(
+            schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers,
+            deterministic,
+        )
+    if z0.device.type != "cuda":
+        raise NotImplementedError(f"no denoise sweep for device {z0.device}")
+
+    name = kernel_name(variant, weights.dtype)
+    _, _, library, function = KERNELS[name]
+    b, d = z0.shape
+    h = obs_emb.shape[-1]
+    if h % 8:
+        raise ValueError(f"the kernel needs hidden_dim % 8 == 0, got {h}")
+    smem = sweep_smem_bytes(d, h, variant)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{name} at latent_dim={d}, hidden_dim={h} needs {smem} bytes of shared "
+            f"memory per block; the kernel's plan allows {MAX_SMEM_BYTES}"
+        )
+    for arg, t in (("z0", z0), ("obs_emb", obs_emb), ("t_embs", t_embs)):
+        if not t.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+
+    from ._build import load_library
+
+    lib = load_library(library)
+    coeffs = sweep_coefficients(schedule, num_steps, deterministic).contiguous()
+    out = torch.empty_like(z0)
+    offsets_type = _TrunkOffsets if variant == "v1" else _TrunkOffsetsV2
+    offsets = offsets_type(*(weights.offsets[k][0] for k in PACK_ORDER[variant]))
+    scratch = []
+    if variant == "v2":
+        scratch = [torch.empty(sweep_v2_scratch_floats(b, h, num_layers), device=z0.device)]
+    with torch.cuda.device(z0.device):
+        stream = torch.cuda.current_stream(z0.device).cuda_stream
+        err = getattr(lib, function)(
+            z0.data_ptr(), obs_emb.data_ptr(), t_embs.data_ptr(), coeffs.data_ptr(),
+            weights.weights.data_ptr(), weights.biases.data_ptr(), offsets, seed.data_ptr(),
+            *(s.data_ptr() for s in scratch), out.data_ptr(),
+            b, d, h, num_layers, num_steps, weights.output_multiplier,
+            0 if deterministic else 1, smem, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {lib.aid_cuda_error_string(err).decode()} ({err})"
+        )
+    LAUNCHES[name] += 1
+    return out
+
+
 def fused_denoise_sweep(
     schedule: DiffusionSchedule,
     weights: PackedTrunk,
@@ -333,54 +527,30 @@ def fused_denoise_sweep(
     num_layers: int,
     deterministic: bool = False,
 ) -> torch.Tensor:
-    """Run the full K-step denoise; returns z_0 (B, D) float32.
+    """Run the full K-step denoise with v1 weights (float32 or bfloat16);
+    returns z_0 (B, D) float32.
 
-    A CUDA tensor launches the kernel (one launch, counted in
-    ``fused_denoise_sweep.launches``) or raises; a CPU tensor runs
+    A CUDA tensor launches the v1 kernel of the weights' type (one launch,
+    counted in ``LAUNCHES``) or raises; a CPU tensor runs
     ``denoise_sweep_reference``."""
-    _check_args(schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers)
-    if z0.device.type == "cpu":
-        return denoise_sweep_reference(
-            schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers,
-            deterministic,
-        )
-    if z0.device.type != "cuda":
-        raise NotImplementedError(f"no denoise sweep for device {z0.device}")
-
-    b, d = z0.shape
-    h = obs_emb.shape[-1]
-    if h % 8:
-        raise ValueError(f"the kernel needs hidden_dim % 8 == 0, got {h}")
-    smem = sweep_smem_bytes(d, h)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"denoise sweep at latent_dim={d}, hidden_dim={h} needs {smem} bytes "
-            f"of shared memory per block; the kernel's plan allows {MAX_SMEM_BYTES}"
-        )
-    for name, t in (("z0", z0), ("obs_emb", obs_emb), ("t_embs", t_embs)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-    from ._build import load_library
-
-    lib = load_library()
-    coeffs = sweep_coefficients(schedule, num_steps, deterministic).contiguous()
-    out = torch.empty_like(z0)
-    offsets = _TrunkOffsets(*(weights.offsets[name][0] for name in PACK_ORDER))
-    with torch.cuda.device(z0.device):
-        stream = torch.cuda.current_stream(z0.device).cuda_stream
-        err = lib.aid_denoise_sweep(
-            z0.data_ptr(), obs_emb.data_ptr(), t_embs.data_ptr(), coeffs.data_ptr(),
-            weights.buffer.data_ptr(), offsets, seed.data_ptr(), out.data_ptr(),
-            b, d, h, num_layers, num_steps, weights.output_multiplier,
-            0 if deterministic else 1, smem, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"denoise_sweep launch failed: {lib.aid_cuda_error_string(err).decode()} ({err})"
-        )
-    fused_denoise_sweep.launches += 1
-    return out
+    return _sweep("v1", schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers,
+                  deterministic)
 
 
-fused_denoise_sweep.launches = 0
+def fused_denoise_sweep_v2(
+    schedule: DiffusionSchedule,
+    weights: PackedTrunk,
+    z0: torch.Tensor,
+    obs_emb: torch.Tensor,
+    t_embs: torch.Tensor,
+    seed: torch.Tensor,
+    num_steps: int,
+    num_layers: int,
+    deterministic: bool = False,
+) -> torch.Tensor:
+    """The v2 sweep (weights packed for ``"v2"``): the same semantics as
+    ``fused_denoise_sweep``, with v_proj@out_proj and the modulation
+    products combined algebraically. A CUDA tensor launches the v2 kernel of
+    the weights' type or raises; it never runs v1."""
+    return _sweep("v2", schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers,
+                  deterministic)

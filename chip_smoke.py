@@ -3,25 +3,40 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version, drives the state agent's acting path
-(``DiffusionStateAgent.act``) at the flagship width, and times both. Any
-failed phase raises, so the script exits non-zero; without a CUDA device it
-exits non-zero before printing a result. It imports no JAX.
+It builds the port's CUDA kernels from the sources in this checkout, holds
+each against its plain PyTorch version, drives the state agent's acting
+paths (``DiffusionStateAgent.act`` and ``act_warm``) through every kernel,
+and times them. Any failed phase raises, so the script exits non-zero;
+without a CUDA device it exits non-zero before printing a result. It
+imports no JAX and nothing of the JAX package.
 
 Phases:
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
-2. build: ``nvcc`` for sm_90a, with the build seconds.
-3. kernel vs plain version at seeded random weights (every parameter normal
-   / sqrt(fan_in), output_multiplier 1.0): the flagship shape, the
+2. build: one ``nvcc`` per source for sm_90a, all started together, with the
+   build seconds and ptxas's register/spill report.
+3. kernels vs plain version at seeded random weights (every parameter
+   normal / sqrt(fan_in), output_multiplier 1.0), each deterministic and
+   stochastic with the same seed: v1-f32 at the flagship, the
    halfcheetah_state.yaml widths (full and partial sweep) and a ragged
-   batch, each deterministic and stochastic with the same seed.
-4. main path: 40 ``agent.act`` calls (20 batches of 256 observations, eval
-   and collect mode) at the flagship config; actions finite, (256, 6),
-   within [-1, 1]; one kernel launch per call; eval actions equal to the
-   plain path's (the same agent on the CPU, from the same start draw).
-5. times: the sweep, kernel against plain, at the flagship width (CUDA
-   events); ``act`` latency at batch 1 and 256 (host clock, synchronised).
+   batch; v1-bf16 at the humanoid_state.yaml width (K=50 full, 25 partial)
+   and a ragged batch; v2-f32 at the flagship and humanoid widths; v2-bf16
+   at the humanoid width.
+4. main paths, each with every launch count set to 0 just before it and
+   read just after; actions finite, (B, A), within [-1, 1]; exactly one
+   launch per call of the path's kernel and none of another; eval actions
+   equal to the plain path's (the same agent on the CPU, from the same start
+   draws):
+   a. flagship config, v1-f32: 20 ``act`` calls at batch 256 in eval and in
+      collect mode;
+   b. flagship config with ``denoiser_kernel="v2"``, v2-f32: 5 + 5 calls;
+   c. humanoid_state.yaml (bfloat16, Fokker-Planck refinement), v1-bf16:
+      20 + 20 ``act`` calls at batch 256 and at batch 8, then 4
+      ``act_warm`` calls at each batch with a ``reset_mask``;
+   d. the same with ``denoiser_kernel="v2"``, v2-bf16.
+5. times: each kernel against its plain version at its main path's shape
+   (CUDA events), v1-f32 also at the humanoid width; ``act`` latency
+   (host clock, synchronised) at the flagship (batch 1, 256) and the
+   humanoid config (batch 8, 256; eval and collect).
 6. the kernel summary line, the card line, and the result line.
 """
 
@@ -36,26 +51,48 @@ import time
 import numpy as np
 import torch
 
-OBS_DIM, ACT_DIM = 17, 6  # HalfCheetah-v4
+FLAGSHIP_OBS, FLAGSHIP_ACT = 17, 6  # HalfCheetah-v4
 # Flagship width (bench.py:235-238): batch 256, latent 32, hidden 128,
 # 6 DiT blocks, K = 25 cosine.
 FLAGSHIP = dict(batch=256, latent=32, hidden=128, layers=6, schedule=25)
-# (name, batch, latent, hidden, layers, schedule length, sweep steps)
+HUMANOID_BATCHES = (256, 8)  # batched eval/collect; num_parallel_envs of the preset
+# (kernel, name, batch, latent, hidden, layers, schedule length, sweep steps)
 PARITY_SHAPES = [
-    ("flagship", 256, 32, 128, 6, 25, 25),
+    ("denoise_sweep_v1_f32", "flagship", 256, 32, 128, 6, 25, 25),
     # examples/configs/halfcheetah_state.yaml, full sweep and its collect sweep
-    ("halfcheetah_state", 256, 50, 256, 6, 100, 100),
-    ("halfcheetah_state_collect", 256, 50, 256, 6, 100, 50),
-    ("ragged", 37, 32, 128, 6, 25, 25),
+    ("denoise_sweep_v1_f32", "halfcheetah_state", 256, 50, 256, 6, 100, 100),
+    ("denoise_sweep_v1_f32", "halfcheetah_state_collect", 256, 50, 256, 6, 100, 50),
+    ("denoise_sweep_v1_f32", "ragged", 37, 32, 128, 6, 25, 25),
+    # examples/configs/humanoid_state.yaml, full sweep and its collect sweep
+    ("denoise_sweep_v1_bf16", "humanoid_state", 256, 64, 256, 6, 50, 50),
+    ("denoise_sweep_v1_bf16", "humanoid_state_collect", 256, 64, 256, 6, 50, 25),
+    ("denoise_sweep_v1_bf16", "humanoid_ragged", 37, 64, 256, 6, 50, 50),
+    ("denoise_sweep_v2_f32", "flagship", 256, 32, 128, 6, 25, 25),
+    ("denoise_sweep_v2_f32", "humanoid_state", 256, 64, 256, 6, 50, 50),
+    ("denoise_sweep_v2_bf16", "humanoid_state", 256, 64, 256, 6, 50, 50),
 ]
-# Kernel vs plain sweep, elementwise |kernel - plain| <= ATOL + RTOL |plain|:
-# float32 on both sides with another summation order, compounded over up to
-# 100 dependent steps of 6 blocks.
-SWEEP_RTOL, SWEEP_ATOL = 1e-3, 1e-4
-# Eval actions (tanh of the policy mean, clipped) of the card against the CPU.
-ACT_ATOL = 1e-4
-ACT_CALLS_PER_MODE = 20
+# Kernel vs plain sweep, elementwise |kernel - plain| <= atol + rtol |plain|.
+# float32: another summation order, compounded over up to 100 dependent
+# steps of 6 blocks. bfloat16 weights: the same rounding sites on both
+# sides, but a one-ulp float32 difference from the other summation order
+# can put an activation on the other side of a bfloat16 rounding boundary
+# (a 2**-8 relative step), and the flip compounds over the K steps.
+SWEEP_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
+# Eval actions (tanh of the policy mean, clipped) of the card against the
+# CPU, per weight type, for the same reasons; the policy head and the tanh
+# damp the latents' differences.
+ACT_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 TIMED_CALLS, WARMUP_CALLS = 25, 3
+# Published H100 SXM peaks (NVIDIA data sheet; dense): HBM bytes/s, and
+# FLOP/s per operand type (float32 outside the tensor cores, bf16 tensor cores).
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+REPLACES = {
+    "denoise_sweep_v1_f32": "active_inference_diffusion_tpu/ops/denoise.py:159",
+    "denoise_sweep_v1_bf16": "active_inference_diffusion_tpu/ops/denoise.py:159",
+    "denoise_sweep_v2_f32": "active_inference_diffusion_tpu/ops/denoise.py:369",
+    "denoise_sweep_v2_bf16": "active_inference_diffusion_tpu/ops/denoise.py:369",
+}
 
 
 def log(msg: str) -> None:
@@ -116,12 +153,20 @@ def main() -> int:
         DiffusionStateAgent,
         TrainingConfig,
     )
+    from active_inference_diffusion_torch.configs.presets import (
+        HUMANOID_ACT_DIM,
+        HUMANOID_OBS_DIM,
+        humanoid_state,
+    )
     from active_inference_diffusion_torch.core.schedules import make_schedule
     from active_inference_diffusion_torch.models.score_network import LatentScoreNetwork
     from active_inference_diffusion_torch.ops import _build
     from active_inference_diffusion_torch.ops.denoise import (
+        KERNELS,
+        LAUNCHES,
         denoise_sweep_reference,
         fused_denoise_sweep,
+        fused_denoise_sweep_v2,
         packed_trunk_weights,
     )
 
@@ -131,139 +176,246 @@ def main() -> int:
         f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    wrappers = {"v1": fused_denoise_sweep, "v2": fused_denoise_sweep_v2}
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build()
-    _build.load_library()
-    log(f"[2 build] {_build.LIBRARY} in {time.perf_counter() - t0:.2f} s")
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[2 build] ptxas: {line.strip()}")
+    libraries = _build.build()
+    for name in libraries:
+        _build.load_library(name)
+    log(f"[2 build] {', '.join(str(p) for p in libraries.values())} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name in libraries:
+        for line in _build.build_log(name).read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[2 build] ptxas {name}: {line.strip()}")
 
-    # -- 3. kernel vs plain version -----------------------------------------
-    def sweep_inputs(batch, latent, hidden, layers, schedule_len, steps, seed):
-        net = LatentScoreNetwork(latent, OBS_DIM, hidden_dim=hidden, num_layers=layers).to(dev)
+    # -- 3. kernels vs plain version ----------------------------------------
+    def sweep_inputs(kernel, batch, latent, hidden, layers, schedule_len, steps, seed,
+                     obs_dim=FLAGSHIP_OBS):
+        variant, dtype, _, _ = KERNELS[kernel]
+        net = LatentScoreNetwork(latent, obs_dim, hidden_dim=hidden, num_layers=layers).to(dev)
         randomize(net, seed)
         gen = torch.Generator(device=dev).manual_seed(seed)
         z0 = torch.randn((batch, latent), generator=gen, device=dev)
-        obs = torch.randn((batch, OBS_DIM), generator=gen, device=dev)
+        obs = torch.randn((batch, obs_dim), generator=gen, device=dev)
         with torch.no_grad():
             obs_emb = net.obs_embedding(obs).contiguous()
             t = torch.arange(steps - 1, -1, -1, device=dev, dtype=torch.float32)
             t_embs = net.time_embedding(t, continuous=False).contiguous()
         seed_t = torch.tensor(1234 + seed, dtype=torch.int64, device=dev)
         schedule = make_schedule(schedule_len, "cosine", device=dev)
-        return schedule, packed_trunk_weights(net), z0, obs_emb, t_embs, seed_t, steps, layers
+        packed = packed_trunk_weights(net, variant, dtype)
+        return wrappers[variant], (schedule, packed, z0, obs_emb, t_embs, seed_t, steps, layers)
 
-    max_abs_err = 0.0
-    for i, (name, batch, latent, hidden, layers, k_sched, steps) in enumerate(PARITY_SHAPES):
-        args = sweep_inputs(batch, latent, hidden, layers, k_sched, steps, seed=i)
+    max_abs_err = {name: 0.0 for name in KERNELS}
+    for i, (kernel, name, batch, latent, hidden, layers, k_sched, steps) in enumerate(PARITY_SHAPES):
+        wrapper, args = sweep_inputs(kernel, batch, latent, hidden, layers, k_sched, steps, seed=i)
+        rtol, atol = SWEEP_TOL[args[1].dtype]
         for deterministic in (True, False):
-            got = fused_denoise_sweep(*args, deterministic=deterministic)
+            got = wrapper(*args, deterministic=deterministic)
             want = denoise_sweep_reference(*args, deterministic=deterministic)
             torch.cuda.synchronize()
             if not (torch.isfinite(got).all() and got.shape == want.shape):
-                raise RuntimeError(f"{name}: kernel output not finite or misshapen")
+                raise RuntimeError(f"{kernel} {name}: kernel output not finite or misshapen")
             err = (got - want).abs()
-            bound = SWEEP_ATOL + SWEEP_RTOL * want.abs()
-            worst = float((err / bound).max())
-            max_abs_err = max(max_abs_err, float(err.max()))
-            log(f"[3 parity] {name} B={batch} D={latent} H={hidden} L={layers} "
+            worst = float((err / (atol + rtol * want.abs())).max())
+            max_abs_err[kernel] = max(max_abs_err[kernel], float(err.max()))
+            log(f"[3 parity] {kernel} {name} B={batch} D={latent} H={hidden} L={layers} "
                 f"K={steps}/{k_sched} {'det' if deterministic else 'sto'}: "
                 f"max|err| {float(err.max()):.3e} max|plain| {float(want.abs().max()):.3e} "
-                f"err/tol {worst:.3f} (tol {SWEEP_ATOL:g} + {SWEEP_RTOL:g}|plain|)")
+                f"err/tol {worst:.3f} (tol {atol:g} + {rtol:g}|plain|)")
             if worst > 1.0:
-                raise RuntimeError(f"{name}: kernel disagrees with its plain version")
+                raise RuntimeError(f"{kernel} {name}: kernel disagrees with its plain version")
 
-    # -- 4. main path -------------------------------------------------------
-    cfg = ActiveInferenceConfig(
-        observation_dim=OBS_DIM, action_dim=ACT_DIM, latent_dim=FLAGSHIP["latent"],
+    # -- 4. main paths ------------------------------------------------------
+    def check_actions(actions, batch, act_dim):
+        if actions.shape != (batch, act_dim) or not np.isfinite(actions).all():
+            raise RuntimeError(f"act returned {actions.shape}, finite={np.isfinite(actions).all()}")
+        if np.abs(actions).max() > 1.0:
+            raise RuntimeError("act returned actions outside [-1, 1]")
+
+    def twin_of(agent):
+        """The same agent on the CPU; it shares the agent's config objects."""
+        twin = DiffusionStateAgent(agent.observation_dim, agent.action_dim, agent.config,
+                                   agent.training_config, device="cpu")
+        twin.core.load_state_dict(agent.core.state_dict())
+        return twin
+
+    def main_path(label, agent, twin, kernel, batch, calls, warm_calls=0, seed=0):
+        """``calls`` eval + ``calls`` collect ``act`` calls, then
+        ``warm_calls`` eval ``act_warm`` calls; counts, checks, and the eval
+        actions held against the CPU twin. Returns the launches."""
+        obs_dim, act_dim = agent.observation_dim, agent.action_dim
+        atol = ACT_ATOL[agent.core.sweep_dtype]
+        rng = np.random.default_rng(seed)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        evals, warms = [], []
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        for _ in range(calls):
+            obs = rng.standard_normal((batch, obs_dim)).astype(np.float32)
+            state = gen.get_state()
+            evals.append((obs, state, agent.act(obs, gen, deterministic=True, collect=False)))
+            collect = agent.act(obs, gen, deterministic=False, collect=True)
+            for actions in (evals[-1][2], collect):
+                check_actions(actions, batch, act_dim)
+        prev = torch.zeros((batch, agent.core.latent_dim), device=dev)
+        for i in range(warm_calls):
+            obs = rng.standard_normal((batch, obs_dim)).astype(np.float32)
+            reset = np.ones(batch, bool) if i == 0 else rng.random(batch) < 0.25
+            state = gen.get_state()
+            actions, latents = agent.act_warm(obs, gen, prev, reset, deterministic=True)
+            check_actions(actions, batch, act_dim)
+            warms.append((obs, reset, prev, state, actions, latents))
+            prev = latents
+        launches = dict(LAUNCHES)
+        total = 2 * calls + warm_calls
+        log(f"[4 main path] {label} B={batch}: {2 * calls} act + {warm_calls} act_warm calls, "
+            f"launches {launches}")
+        if launches != {**{name: 0 for name in KERNELS}, kernel: total}:
+            raise RuntimeError(f"{label}: expected {total} launches of {kernel} and no other")
+
+        err = 0.0
+        replay = torch.Generator(device=dev)
+        for obs, state, actions in evals:
+            replay.set_state(state)
+            start = agent.core.draw_start(batch, replay)
+            plain, _ = twin.act_from_start(
+                torch.from_numpy(obs), start.to("cpu"), None, deterministic=True
+            )
+            err = max(err, float(np.abs(plain.numpy() - actions).max()))
+        warm_err = 0.0
+        for obs, reset, prev, state, actions, latents in warms:
+            replay.set_state(state)
+            fresh = torch.randn(prev.shape, generator=replay, device=dev)
+            start = agent.core.draw_start(batch, replay)
+            plain, _ = twin.act_warm_from_start(
+                torch.from_numpy(obs), prev.cpu(), torch.from_numpy(reset), fresh.cpu(),
+                start.to("cpu"), None, deterministic=True,
+                num_steps=twin.training_config.collect_diffusion_steps,
+            )
+            warm_err = max(warm_err, float(np.abs(plain.numpy() - actions).max()))
+        log(f"[4 main path] {label} B={batch}: eval actions vs plain path (CPU): max|err| "
+            f"act {err:.3e}, act_warm {warm_err:.3e} (tol {atol:g})")
+        if max(err, warm_err) > atol:
+            raise RuntimeError(f"{label}: the card's actions disagree with the plain path")
+        return launches[kernel]
+
+    launches = {}
+    flagship_cfg = ActiveInferenceConfig(
+        observation_dim=FLAGSHIP_OBS, action_dim=FLAGSHIP_ACT, latent_dim=FLAGSHIP["latent"],
         hidden_dim=FLAGSHIP["hidden"], score_num_layers=FLAGSHIP["layers"],
         batch_size=FLAGSHIP["batch"], kl_weight=0.5,
         diffusion=DiffusionConfig(num_diffusion_steps=FLAGSHIP["schedule"], beta_schedule="cosine"),
     )
-    cfg.tpu.use_pallas_denoiser = True
+    flagship_cfg.tpu.use_pallas_denoiser = True
     # 20 collect steps on a 25-step schedule, as the upstream HalfCheetah entry point runs
-    training = TrainingConfig(collect_diffusion_steps=20)
-    agent = DiffusionStateAgent(OBS_DIM, ACT_DIM, cfg, training, device=dev)
-    randomize(agent.core, seed=100)
-    twin = DiffusionStateAgent(OBS_DIM, ACT_DIM, cfg, training, device="cpu")
-    twin.core.load_state_dict(agent.core.state_dict())
+    flagship_training = TrainingConfig(collect_diffusion_steps=20)
+    flagship = DiffusionStateAgent(FLAGSHIP_OBS, FLAGSHIP_ACT, flagship_cfg, flagship_training)
+    randomize(flagship.core, seed=100)
+    twin = twin_of(flagship)
+    launches["denoise_sweep_v1_f32"] = main_path(
+        "flagship v1-f32", flagship, twin, "denoise_sweep_v1_f32", FLAGSHIP["batch"], 20
+    )
+    flagship_cfg.tpu.denoiser_kernel = "v2"
+    launches["denoise_sweep_v2_f32"] = main_path(
+        "flagship v2-f32", flagship, twin, "denoise_sweep_v2_f32", FLAGSHIP["batch"], 5, seed=1
+    )
+    flagship_cfg.tpu.denoiser_kernel = "v1"
 
-    rng = np.random.default_rng(0)
-    batches = [rng.standard_normal((FLAGSHIP["batch"], OBS_DIM)).astype(np.float32)
-               for _ in range(ACT_CALLS_PER_MODE)]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    eval_runs = []
-    fused_denoise_sweep.launches = 0
-    for obs in batches:
-        state = gen.get_state()
-        eval_runs.append((obs, state, agent.act(obs, gen, deterministic=True, collect=False)))
-        collect = agent.act(obs, gen, deterministic=False, collect=True)
-        for actions in (eval_runs[-1][2], collect):
-            if actions.shape != (FLAGSHIP["batch"], ACT_DIM) or not np.isfinite(actions).all():
-                raise RuntimeError(f"act returned {actions.shape}, finite={np.isfinite(actions).all()}")
-            if np.abs(actions).max() > 1.0:
-                raise RuntimeError("act returned actions outside [-1, 1]")
-    launches = fused_denoise_sweep.launches
-    calls = 2 * ACT_CALLS_PER_MODE
-    log(f"[4 main path] {calls} act calls, {launches} kernel launches")
-    if launches != calls:
-        raise RuntimeError(f"expected one kernel launch per act call, got {launches}/{calls}")
-
-    act_err = 0.0
-    replay = torch.Generator(device=dev)
-    for obs, state, actions in eval_runs:
-        replay.set_state(state)
-        z0, seed = agent.core.draw_start(obs.shape[0], replay)
-        plain = twin.act_from_start(
-            torch.from_numpy(obs), z0.cpu(), seed.cpu(), None, deterministic=True
-        ).numpy()
-        act_err = max(act_err, float(np.abs(plain - actions).max()))
-    log(f"[4 main path] eval actions vs plain path (CPU): max|err| {act_err:.3e} (tol {ACT_ATOL:g})")
-    if act_err > ACT_ATOL:
-        raise RuntimeError("the card's actions disagree with the plain path")
+    humanoid_cfg, humanoid_training = humanoid_state()
+    humanoid = DiffusionStateAgent(
+        HUMANOID_OBS_DIM, HUMANOID_ACT_DIM, humanoid_cfg, humanoid_training
+    )
+    randomize(humanoid.core, seed=200)
+    htwin = twin_of(humanoid)
+    for variant in ("v1", "v2"):
+        humanoid_cfg.tpu.denoiser_kernel = variant
+        kernel = f"denoise_sweep_{variant}_bf16"
+        launches[kernel] = sum(
+            main_path(f"humanoid {variant}-bf16", humanoid, htwin, kernel, batch, 20,
+                      warm_calls=4, seed=batch)
+            for batch in HUMANOID_BATCHES
+        )
+    humanoid_cfg.tpu.denoiser_kernel = "v1"
 
     # -- 5. times -----------------------------------------------------------
-    args = sweep_inputs(**{k: FLAGSHIP[k] for k in ("batch", "latent", "hidden", "layers")},
-                        schedule_len=FLAGSHIP["schedule"], steps=FLAGSHIP["schedule"], seed=7)
-    arms = {
-        "kernel": lambda: fused_denoise_sweep(*args, deterministic=False),
-        "plain": lambda: denoise_sweep_reference(*args, deterministic=False),
-    }
-    samples = {name: [] for name in arms}
-    for name in arms:
-        cuda_ms(arms[name], WARMUP_CALLS)
-    for name in ("plain", "kernel", "kernel", "plain"):
-        samples[name] += cuda_ms(arms[name], (TIMED_CALLS + 1) // 2)
-    sweep_ms = {name: statistics.median(v) for name, v in samples.items()}
-    for name in ("kernel", "plain"):
-        log(f"[5 times] sweep {name}: median {sweep_ms[name]:.4f} ms over {len(samples[name])} "
-            f"calls (B=256 D=32 H=128 L=6 K=25, stochastic) | {card}")
-
-    act_ms = {}
-    for batch in (1, FLAGSHIP["batch"]):
-        obs = batches[0][:batch]
-        for _ in range(WARMUP_CALLS):
-            agent.act(obs, gen, deterministic=True, collect=False)
-        act_ms[batch] = statistics.median(
-            host_ms(lambda: agent.act(obs, gen, deterministic=True, collect=False), TIMED_CALLS)
+    hum = dict(batch=256, latent=64, hidden=256, layers=6, schedule_len=50, steps=50)
+    flag = dict(batch=256, latent=32, hidden=128, layers=6, schedule_len=25, steps=25)
+    timed = [  # (kernel, shape label, shape); the first row of a kernel goes in its line
+        ("denoise_sweep_v1_f32", "flagship", flag),
+        ("denoise_sweep_v1_bf16", "humanoid_state", hum),
+        ("denoise_sweep_v2_f32", "humanoid_state", hum),
+        ("denoise_sweep_v2_bf16", "humanoid_state", hum),
+        ("denoise_sweep_v1_f32", "humanoid_state", hum),
+    ]
+    summary = {}
+    for kernel, label, shape in timed:
+        wrapper, args = sweep_inputs(kernel, **shape, seed=7)
+        arms = {
+            "kernel": lambda: wrapper(*args, deterministic=False),
+            "plain": lambda: denoise_sweep_reference(*args, deterministic=False),
+        }
+        calls = TIMED_CALLS if label == "flagship" else 10
+        samples = {name: [] for name in arms}
+        for name in arms:
+            cuda_ms(arms[name], WARMUP_CALLS)
+        for name in ("plain", "kernel", "kernel", "plain"):
+            samples[name] += cuda_ms(arms[name], (calls + 1) // 2)
+        ms = {name: statistics.median(v) for name, v in samples.items()}
+        packed, z0, obs_emb, t_embs = args[1], args[2], args[3], args[4]
+        b, k = z0.shape[0], args[6]
+        weights = sum(
+            int(np.prod(shape)) for name, (_, shape) in packed.offsets.items() if name.endswith("_w")
         )
-        log(f"[5 times] act latency b={batch}: median {act_ms[batch]:.4f} ms over "
-            f"{TIMED_CALLS} calls (eval, K=25) | {card}")
+        flops = 2.0 * weights * b * k
+        nbytes = (packed.weights.numel() * packed.weights.element_size()
+                  + 4 * (packed.biases.numel() + z0.numel() + obs_emb.numel() + t_embs.numel()
+                         + 8 * k + z0.numel()))
+        bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                 "operations": flops / PEAK_FLOPS[packed.dtype] * 1e3}
+        bound_by = max(bound, key=bound.get)
+        log(f"[5 times] {kernel} {label} B={b} K={k}: kernel median {ms['kernel']:.4f} ms, "
+            f"plain {ms['plain']:.4f} ms over {len(samples['kernel'])} calls each (stochastic); "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB, bound {bound[bound_by]:.4f} ms "
+            f"({bound_by}) | {card}")
+        if kernel not in summary:
+            summary[kernel] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                                   bound_ms=bound[bound_by], bound_by=bound_by)
+
+    obs_flag = np.random.default_rng(0).standard_normal((256, FLAGSHIP_OBS)).astype(np.float32)
+    obs_hum = np.random.default_rng(1).standard_normal((256, HUMANOID_OBS_DIM)).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for label, agent, obs_all, batches, modes in (
+        ("flagship", flagship, obs_flag, (1, 256), ("eval",)),
+        ("humanoid_state", humanoid, obs_hum, (8, 256), ("eval", "collect")),
+    ):
+        for batch in batches:
+            for mode in modes:
+                obs = obs_all[:batch]
+
+                def call():
+                    agent.act(obs, gen, deterministic=mode == "eval", collect=mode == "collect")
+
+                for _ in range(WARMUP_CALLS):
+                    call()
+                act_ms = statistics.median(host_ms(call, TIMED_CALLS))
+                log(f"[5 times] act latency {label} b={batch} {mode}: median {act_ms:.4f} ms "
+                    f"over {TIMED_CALLS} calls | {card}")
 
     # -- 6. summary ---------------------------------------------------------
     print(json.dumps({"kernels": [{
-        "name": "denoise_sweep",
+        "name": name,
         "route": "cuda",
-        "source": "active_inference_diffusion_torch/csrc/denoise_sweep.cu",
-        "replaces": "active_inference_diffusion_tpu/ops/denoise.py:159",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": sweep_ms["kernel"],
-        "plain_ms": sweep_ms["plain"],
-    }]}), flush=True)
+        "source": "active_inference_diffusion_torch/csrc/"
+                  + ("denoise_sweep.cu" if KERNELS[name][0] == "v1" else "denoise_sweep_v2.cu"),
+        "replaces": REPLACES[name],
+        "launches": launches[name],
+        "max_abs_err": max_abs_err[name],
+        **summary[name],
+        "library_ms": None,  # no single PyTorch call computes the K-step sweep
+    } for name in KERNELS]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

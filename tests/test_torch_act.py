@@ -1,13 +1,27 @@
 """Port parity: the acting slice as a whole, and the port's guards.
 
 The JAX agent's ``act(state, obs, key, deterministic=True, collect=False)``
-with ``deterministic_beliefs=True`` is compared with the port's
-``act_from_start`` on JAX's own start latent, recomputed here from the key
-path (``_act_impl`` splits the key in 3, ``core.act`` splits ``act_key`` in
-3, ``generate_beliefs`` splits ``belief_key`` in 2 and draws z0 from the
-first half), at rtol 1e-4 / atol 1e-5.
+and ``act_warm`` with ``deterministic_beliefs=True`` are compared with the
+port's ``act_from_start`` / ``act_warm_from_start`` on JAX's own draws,
+recomputed here from the key path:
+
+- ``act``: ``_act_impl`` splits the key in 3, ``core.act`` splits ``act_key``
+  in 3 (belief, efe, act); ``generate_beliefs`` splits the belief key in 2
+  and draws the start from the first half; the refinement splits the act
+  key in 2 and draws one normal per step from ``split(fp_key, steps)``.
+- ``act_warm``: ``_act_warm_impl`` splits the key in 5 (feat, belief, act,
+  noise, reset); the reset rows' fresh latents come from the reset key, the
+  forward noise of the warm start from the belief key's first half.
+
+Off the TPU the JAX core runs its float32 XLA scan whatever the config
+says. For the bfloat16 and v2 configs the test makes it take its Pallas
+path in interpret mode (``pallas_interpret``), as tests/test_pallas_denoise.py
+runs the kernels, with deterministic beliefs only: interpret mode has no TPU
+PRNG. float32 configs are held at ``MODEL_TOL`` (or rtol 1e-4 / atol 1e-5
+on actions), bfloat16 ones at ``BF16_TOL``.
 """
 
+import functools
 import subprocess
 import sys
 import types
@@ -19,43 +33,88 @@ import numpy as np
 import pytest
 import torch
 
-from active_inference_diffusion_tpu.agents.state_agent import (
-    DiffusionStateAgent as JaxStateAgent,
-)
 from active_inference_diffusion_tpu.configs.config import (
     BeliefDynamicsConfig,
     TrainingConfig,
 )
+from active_inference_diffusion_tpu.ops import denoise as jax_denoise
 from active_inference_diffusion_torch.agents.state_agent import DiffusionStateAgent
-from active_inference_diffusion_torch.core.active_inference import check_sweep_supported
+from active_inference_diffusion_torch.core.active_inference import ActStart
 from torch_parity import (
     ACT_DIM,
+    BF16_TOL,
+    CPU,
     MODEL_TOL,
     OBS_DIM,
     B,
     D,
+    jax_agent,
     jax_core_and_params,
     normal,
     t,
     tiny_config,
+    torch_agent,
     torch_core,
 )
 
 REPO = Path(__file__).resolve().parents[1]
 SEED = torch.tensor(0, dtype=torch.int64)
+ACT_TOL = dict(rtol=1e-4, atol=1e-5)
+REFINE = BeliefDynamicsConfig(use_belief_dynamics=True, refine_steps=2)
+# (compute_dtype, denoiser_kernel) -> tolerance; float32 v1 runs the JAX XLA scan
+SWEEPS = {
+    ("float32", "v1"): ACT_TOL,
+    ("bfloat16", "v1"): BF16_TOL,
+    ("bfloat16", "v2"): BF16_TOL,
+}
 
 
-def jax_start_latent(key, batch):
-    _, act_key, _ = jax.random.split(key, 3)
-    belief_key, _, _ = jax.random.split(act_key, 3)
+def jax_normal(key, *shape):
+    return np.asarray(jax.random.normal(key, shape, dtype=jnp.float32))
+
+
+def jax_draws(key, batch, refine_steps=0, warm=False):
+    """The draws of the JAX agent's ``act`` (or ``act_warm``) as the port's
+    ``ActStart``, and the fresh reset latents of ``act_warm``."""
+    fresh = None
+    if warm:
+        _, belief_key, act_key, _, reset_key = jax.random.split(key, 5)
+        fresh = t(jax_normal(reset_key, batch, D))
+    else:
+        _, agent_act_key, _ = jax.random.split(key, 3)
+        belief_key, _, act_key = jax.random.split(agent_act_key, 3)
     init_key, _ = jax.random.split(belief_key)
-    return np.asarray(jax.random.normal(init_key, (batch, D), dtype=jnp.float32))
+    refine_noise = None
+    if refine_steps:
+        fp_key, _ = jax.random.split(act_key)
+        refine_noise = t(np.stack(
+            [jax_normal(k, batch, D) for k in jax.random.split(fp_key, refine_steps)]
+        ))
+    return ActStart(t(jax_normal(init_key, batch, D)), SEED, refine_noise), fresh
 
 
-def torch_agent(cfg, params, training_config=None):
-    agent = DiffusionStateAgent(OBS_DIM, ACT_DIM, cfg, training_config or TrainingConfig())
-    agent.load_jax_params(params)
-    return agent
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """Put a JAX agent's core on its Pallas sweep in interpret mode: the gate
+    is set as if on a TPU, and the two sweep functions, which
+    ``generate_beliefs`` imports at call time, run in interpret mode."""
+    for name in ("fused_denoise_sweep", "fused_denoise_sweep_v2"):
+        monkeypatch.setattr(
+            jax_denoise, name, functools.partial(getattr(jax_denoise, name), interpret=True)
+        )
+
+    def on(jagent):
+        jagent.core._fused_sweep_checked = True
+        return jagent
+
+    return on
+
+
+def slice_config(compute_dtype, denoiser_kernel, **overrides):
+    return tiny_config(
+        deterministic_beliefs=True, belief_dynamics=REFINE, compute_dtype=compute_dtype,
+        denoiser_kernel=denoiser_kernel, **overrides,
+    )
 
 
 # policy_squash None resolves to tanh (corrected mode); False leaves the
@@ -66,17 +125,67 @@ def test_act_matches_jax_agent(policy_squash):
     _, params = jax_core_and_params(cfg)
     obs = 2.0 * normal(20, B, OBS_DIM)
     key = jax.random.PRNGKey(21)
-    jagent = JaxStateAgent(OBS_DIM, ACT_DIM, cfg, TrainingConfig())
     # act reads only state.params when no EMA acting flag is set
+    expected = jax_agent(cfg).act(
+        types.SimpleNamespace(params=params), obs, key, deterministic=True, collect=False
+    )
+    start, _ = jax_draws(key, B)
+    got, _ = torch_agent(cfg, params).act_from_start(t(obs), start, None, deterministic=True)
+    if policy_squash is False:
+        assert (np.abs(expected) == 1.0).any()  # some actions were clipped
+    np.testing.assert_allclose(got.numpy(), expected, **ACT_TOL)
+
+
+@pytest.mark.parametrize("sweep", list(SWEEPS), ids=["-".join(s) for s in SWEEPS])
+def test_act_with_refinement_matches_jax_agent(pallas_interpret, sweep):
+    """The humanoid_state.yaml path at tiny widths: the sweep in the
+    config's variant and weight type, then two Fokker-Planck refinement
+    steps, then the policy."""
+    cfg = slice_config(*sweep)
+    _, params = jax_core_and_params(cfg)
+    jagent = jax_agent(cfg)
+    if sweep != ("float32", "v1"):
+        pallas_interpret(jagent)
+    obs = normal(40, B, OBS_DIM)
+    key = jax.random.PRNGKey(41)
     expected = jagent.act(
         types.SimpleNamespace(params=params), obs, key, deterministic=True, collect=False
     )
-    got = torch_agent(cfg, params).act_from_start(
-        t(obs), t(jax_start_latent(key, B)), SEED, None, deterministic=True
+    start, _ = jax_draws(key, B, REFINE.refine_steps)
+    got, _ = torch_agent(cfg, params).act_from_start(t(obs), start, None, deterministic=True)
+    np.testing.assert_allclose(got.numpy(), expected, **SWEEPS[sweep])
+
+
+@pytest.mark.parametrize("sweep", [("float32", "v1"), ("bfloat16", "v1")],
+                         ids=["float32-v1", "bfloat16-v1"])
+def test_act_warm_matches_jax_agent(pallas_interpret, sweep):
+    """Warm start over a truncated sweep of 3 of the 5 steps: rows 0 and 5
+    reset to fresh latents, the others start from their previous belief
+    forward-noised to t = 2. Returns the actions and the refined latents."""
+    cfg = slice_config(*sweep)
+    _, params = jax_core_and_params(cfg)
+    jagent = jax_agent(cfg, TrainingConfig(collect_diffusion_steps=3))
+    if sweep != ("float32", "v1"):
+        pallas_interpret(jagent)
+    obs, prev = normal(42, B, OBS_DIM), normal(43, B, D)
+    reset = np.zeros(B, bool)
+    reset[[0, 5]] = True
+    key = jax.random.PRNGKey(44)
+    actions, latents = jagent.act_warm(
+        types.SimpleNamespace(params=params), obs, key, jnp.asarray(prev), reset,
+        deterministic=True,
     )
-    if policy_squash is False:
-        assert (np.abs(expected) == 1.0).any()  # some actions were clipped
-    np.testing.assert_allclose(got.numpy(), expected, rtol=1e-4, atol=1e-5)
+    start, fresh = jax_draws(key, B, REFINE.refine_steps, warm=True)
+    agent = torch_agent(cfg, params, TrainingConfig(collect_diffusion_steps=3))
+    got, got_latents = agent.act_warm_from_start(
+        t(obs), t(prev), torch.from_numpy(reset), fresh, start, None, deterministic=True,
+        num_steps=3,
+    )
+    tol = SWEEPS[sweep]
+    np.testing.assert_allclose(got.numpy(), actions, **tol)
+    np.testing.assert_allclose(
+        got_latents.numpy(), np.asarray(latents), **(MODEL_TOL if tol is ACT_TOL else tol)
+    )
 
 
 def test_beliefs_match_jax_generate_beliefs():
@@ -85,7 +194,7 @@ def test_beliefs_match_jax_generate_beliefs():
     tcore = torch_core(cfg, params)
     obs = normal(22, B, OBS_DIM)
     key = jax.random.PRNGKey(23)
-    z0 = np.asarray(jax.random.normal(jax.random.split(key)[0], (B, D), dtype=jnp.float32))
+    z0 = jax_normal(jax.random.split(key)[0], B, D)
     for batch in (B, 1):  # ddof=1 std; zeros at batch 1
         expected = jcore.generate_beliefs(
             params, key, obs[:batch], deterministic=True, compute_reconstruction=False
@@ -100,7 +209,7 @@ def test_beliefs_match_jax_generate_beliefs():
 
 
 def test_agent_act_on_cpu():
-    cfg = tiny_config()
+    cfg = tiny_config(belief_dynamics=REFINE, compute_dtype="bfloat16")
     _, params = jax_core_and_params(cfg)
     agent = torch_agent(cfg, params, TrainingConfig(collect_diffusion_steps=3))
     obs = normal(24, 6, OBS_DIM)
@@ -109,9 +218,22 @@ def test_agent_act_on_cpu():
     assert np.isfinite(actions).all() and (np.abs(actions) <= 1.0).all()
     # collect=True runs collect_diffusion_steps: replay the same draws
     g = torch.Generator().manual_seed(0)
-    z0, seed = agent.core.draw_start(6, g)
-    again = agent.act_from_start(t(obs), z0, seed, g, deterministic=False, num_steps=3)
+    start = agent.core.draw_start(6, g)
+    assert start.refine_noise.shape == (REFINE.refine_steps, 6, D)
+    again, _ = agent.act_from_start(t(obs), start, g, deterministic=False, num_steps=3)
     np.testing.assert_array_equal(actions, again.numpy())
+    # act_warm threads the latents; its draws are fresh latents, then the start
+    prev = torch.zeros(6, D)
+    reset = np.array([True, False] * 3)
+    warm, latents = agent.act_warm(obs, torch.Generator().manual_seed(1), prev, reset)
+    g = torch.Generator().manual_seed(1)
+    fresh = torch.randn((6, D), generator=g)
+    start = agent.core.draw_start(6, g)
+    again, again_latents = agent.act_warm_from_start(
+        t(obs), prev, torch.from_numpy(reset), fresh, start, g, num_steps=3
+    )
+    np.testing.assert_array_equal(warm, again.numpy())
+    assert torch.equal(latents, again_latents) and latents.shape == (6, D)
     # one observation -> a batch of one
     single = agent.act(obs[0], torch.Generator().manual_seed(1), deterministic=True)
     assert single.shape == (1, ACT_DIM)
@@ -122,57 +244,65 @@ def test_agent_act_on_cpu():
     [
         (dict(posterior_beliefs=True, act_from_posterior=True), "act"),
         (dict(plan_candidates=4), "act"),
-        (dict(belief_dynamics=BeliefDynamicsConfig(use_belief_dynamics=True)), "act"),
         ({}, "compute_efe_info"),
         ({}, "return_trajectory"),
-        ({}, "act_warm"),
         (dict(pixel_observation=True), "construct"),
     ],
-    ids=["act_from_posterior", "act_planned", "belief_dynamics", "efe_info",
-         "trajectory", "act_warm", "pixels"],
+    ids=["act_from_posterior", "act_planned", "efe_info", "trajectory", "pixels"],
 )
 def test_unported_branches_raise(overrides, call):
     cfg = tiny_config(**overrides)
+    _, params = jax_core_and_params()  # the weights depend on the widths only
     obs = normal(25, 2, OBS_DIM)
     g = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError):
-        agent = DiffusionStateAgent(OBS_DIM, ACT_DIM, cfg, TrainingConfig())
+        agent = torch_agent(cfg, params)
         if call == "act":
             agent.act(obs, g)
         elif call == "compute_efe_info":
             agent.core.act(g, t(obs), compute_efe_info=True)
         elif call == "return_trajectory":
             agent.core.generate_beliefs(g, t(obs), return_trajectory=True)
-        elif call == "act_warm":
-            agent.act_warm(obs, g)
 
 
-@pytest.mark.parametrize(
-    "field,value", [("compute_dtype", "bfloat16"), ("denoiser_kernel", "v2")]
-)
-def test_cuda_only_sweep_variants_raise(field, value):
+def test_default_device_is_cuda():
+    """Without a device the core and the agent run on CUDA, and raise where
+    there is none: the CPU runs only when asked for."""
     cfg = tiny_config()
-    setattr(cfg.tpu, field, value)
-    check_sweep_supported(cfg, torch.device("cpu"))  # the plain f32 sweep runs
-    with pytest.raises(NotImplementedError):
-        check_sweep_supported(cfg, torch.device("cuda"))
+    _, params = jax_core_and_params(cfg)
+    assert torch_agent(cfg, params).device == CPU  # asked for
+    from torch_parity import port_config
+
+    make = functools.partial(
+        DiffusionStateAgent, OBS_DIM, ACT_DIM, port_config(cfg), port_config(TrainingConfig())
+    )
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
 
 
 def test_port_imports_no_jax():
-    """Importing the port, building the agent and acting on the CPU loads
-    neither jax nor flax."""
+    """Building the humanoid_state.yaml agent on the CPU and calling ``act``
+    and ``act_warm`` loads no module of jax, flax or the JAX package."""
     code = (
         "import sys\n"
         "import numpy as np, torch\n"
-        "from active_inference_diffusion_torch import (ActiveInferenceConfig,\n"
-        "    DiffusionConfig, DiffusionStateAgent, TrainingConfig)\n"
-        "cfg = ActiveInferenceConfig(observation_dim=5, action_dim=2, latent_dim=8,\n"
-        "    hidden_dim=32, score_num_layers=2,\n"
-        "    diffusion=DiffusionConfig(num_diffusion_steps=5))\n"
-        "agent = DiffusionStateAgent(5, 2, cfg, TrainingConfig())\n"
-        "a = agent.act(np.zeros((3, 5), np.float32), torch.Generator().manual_seed(0))\n"
-        "assert a.shape == (3, 2) and np.isfinite(a).all()\n"
-        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax'))\n"
+        "from active_inference_diffusion_torch import DiffusionStateAgent\n"
+        "from active_inference_diffusion_torch.configs.presets import (\n"
+        "    HUMANOID_ACT_DIM, HUMANOID_OBS_DIM, humanoid_state)\n"
+        "cfg, training = humanoid_state()\n"
+        "agent = DiffusionStateAgent(HUMANOID_OBS_DIM, HUMANOID_ACT_DIM, cfg, training,\n"
+        "                            device='cpu')\n"
+        "obs = np.zeros((2, HUMANOID_OBS_DIM), np.float32)\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "a = agent.act(obs, g)\n"
+        "w, z = agent.act_warm(obs, g, torch.zeros(2, cfg.latent_dim), np.array([True, False]))\n"
+        "assert a.shape == w.shape == (2, HUMANOID_ACT_DIM) and np.isfinite(a).all()\n"
+        "assert np.isfinite(w).all() and z.shape == (2, cfg.latent_dim)\n"
+        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "                ('jax', 'flax', 'active_inference_diffusion_tpu'))\n"
         "assert not loaded, loaded\n"
     )
     proc = subprocess.run(

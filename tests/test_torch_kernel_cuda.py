@@ -1,13 +1,16 @@
-"""The CUDA denoise-sweep kernel against its plain PyTorch version, on the card.
+"""The CUDA denoise-sweep kernels against their plain PyTorch version, on the card.
 
 Every test here needs an NVIDIA GPU, is marked ``cuda`` and skips without
 one. The file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
 
-(``--noconftest`` skips tests/conftest.py, which sets up JAX.) The kernel
-and the plain version are both float32 and differ in summation order:
-rtol 1e-4 / atol 1e-5 at these small widths.
+(``--noconftest`` skips tests/conftest.py, which sets up JAX.) Tolerances:
+with float32 weights the kernel and the plain version differ only in
+summation order, rtol 1e-4 / atol 1e-5 at these small widths. With
+bfloat16 weights a one-ulp float32 difference can flip a bfloat16 rounding
+of an activation, and the flip carries through the later steps: rtol 1e-2
+/ atol 5e-3.
 """
 
 import numpy as np
@@ -20,17 +23,23 @@ from active_inference_diffusion_torch import (
     DiffusionStateAgent,
     TrainingConfig,
 )
+from active_inference_diffusion_torch.configs.config import BeliefDynamicsConfig
 from active_inference_diffusion_torch.core.schedules import make_schedule
 from active_inference_diffusion_torch.models.score_network import LatentScoreNetwork
 from active_inference_diffusion_torch.ops.denoise import (
+    LAUNCHES,
     denoise_sweep_reference,
     fused_denoise_sweep,
+    fused_denoise_sweep_v2,
+    kernel_name,
     packed_trunk_weights,
 )
 
 pytestmark = pytest.mark.cuda
 
 OBS_DIM = 5
+WRAPPERS = {"v1": fused_denoise_sweep, "v2": fused_denoise_sweep_v2}
+TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5), torch.bfloat16: dict(rtol=1e-2, atol=5e-3)}
 
 
 @pytest.fixture
@@ -50,7 +59,8 @@ def randomize(module, seed):
             p.copy_(torch.randn(p.shape, generator=gen) / fan_in**0.5)
 
 
-def sweep_args(device, batch, latent, hidden, layers, steps, seed=0):
+def sweep_args(device, batch, latent, hidden, layers, steps, seed=0, variant="v1",
+               dtype=torch.float32):
     net = LatentScoreNetwork(latent, OBS_DIM, hidden_dim=hidden, num_layers=layers).to(device)
     randomize(net, seed)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -61,8 +71,8 @@ def sweep_args(device, batch, latent, hidden, layers, steps, seed=0):
         t = torch.arange(steps - 1, -1, -1, device=device, dtype=torch.float32)
         t_embs = net.time_embedding(t, continuous=False).contiguous()
     seed_t = torch.tensor(99, dtype=torch.int64, device=device)
-    return (make_schedule(steps, device=device), packed_trunk_weights(net), z0, obs_emb,
-            t_embs, seed_t, steps, layers)
+    return (make_schedule(steps, device=device), packed_trunk_weights(net, variant, dtype), z0,
+            obs_emb, t_embs, seed_t, steps, layers)
 
 
 # (batch, latent, hidden, layers): the parity tests' widths, a ragged batch,
@@ -71,35 +81,72 @@ def sweep_args(device, batch, latent, hidden, layers, steps, seed=0):
 @pytest.mark.parametrize("deterministic", [True, False])
 def test_kernel_matches_plain_version(cuda, shape, deterministic):
     args = sweep_args(cuda, *shape, steps=5)
-    before = fused_denoise_sweep.launches
+    before = LAUNCHES["denoise_sweep_v1_f32"]
     got = fused_denoise_sweep(*args, deterministic=deterministic)
     torch.cuda.synchronize()
-    assert fused_denoise_sweep.launches == before + 1
+    assert LAUNCHES["denoise_sweep_v1_f32"] == before + 1
     want = denoise_sweep_reference(*args, deterministic=deterministic)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
 
 
-def test_agent_act_launches_the_kernel_once_per_call(cuda):
+@pytest.mark.parametrize(
+    "variant,dtype",
+    [("v1", torch.bfloat16), ("v2", torch.float32), ("v2", torch.bfloat16)],
+    ids=["v1-bf16", "v2-f32", "v2-bf16"],
+)
+@pytest.mark.parametrize("shape", [(8, 8, 32, 2), (37, 50, 64, 2)], ids=["tiny", "ragged"])
+@pytest.mark.parametrize("deterministic", [True, False], ids=["det", "sto"])
+def test_kernel_variants_match_plain_version(cuda, variant, dtype, shape, deterministic):
+    args = sweep_args(cuda, *shape, steps=5, variant=variant, dtype=dtype)
+    name = kernel_name(variant, dtype)
+    before = dict(LAUNCHES)
+    got = WRAPPERS[variant](*args, deterministic=deterministic)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**before, name: before[name] + 1}
+    want = denoise_sweep_reference(*args, deterministic=deterministic)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL[dtype])
+
+
+def test_v2_kernel_matches_v1_kernel(cuda):
+    """float32 v1 and v2 kernels draw the same noise: the stochastic sweeps
+    agree up to the reassociation of Wv @ Wo."""
+    v1 = fused_denoise_sweep(*sweep_args(cuda, 37, 8, 32, 2, steps=5), deterministic=False)
+    v2 = fused_denoise_sweep_v2(
+        *sweep_args(cuda, 37, 8, 32, 2, steps=5, variant="v2"), deterministic=False
+    )
+    np.testing.assert_allclose(v2.cpu().numpy(), v1.cpu().numpy(), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("kernel", ["v1", "v2"])
+def test_agent_act_launches_the_kernel_once_per_call(cuda, kernel):
     cfg = ActiveInferenceConfig(
         observation_dim=OBS_DIM, action_dim=2, latent_dim=8, hidden_dim=32,
         score_num_layers=2, diffusion=DiffusionConfig(num_diffusion_steps=5),
+        belief_dynamics=BeliefDynamicsConfig(use_belief_dynamics=True),
     )
-    agent = DiffusionStateAgent(OBS_DIM, 2, cfg, TrainingConfig(), device=cuda)
+    cfg.tpu.compute_dtype, cfg.tpu.denoiser_kernel = "bfloat16", kernel
+    agent = DiffusionStateAgent(OBS_DIM, 2, cfg, TrainingConfig())
+    assert agent.device.type == "cuda"  # the default
     randomize(agent.core, 1)
     gen = torch.Generator(device=cuda).manual_seed(0)
     obs = np.random.default_rng(0).standard_normal((6, OBS_DIM)).astype(np.float32)
-    before = fused_denoise_sweep.launches
+    name = kernel_name(kernel, torch.bfloat16)
+    before = dict(LAUNCHES)
     for deterministic in (True, False, False):
         actions = agent.act(obs, gen, deterministic=deterministic)
         assert actions.shape == (6, 2) and np.isfinite(actions).all()
         assert np.abs(actions).max() <= 1.0
-    assert fused_denoise_sweep.launches == before + 3
+    actions, latents = agent.act_warm(obs, gen, torch.zeros(6, 8, device=cuda),
+                                      np.array([True, False] * 3))
+    assert np.isfinite(actions).all() and latents.shape == (6, 8)
+    assert LAUNCHES == {**before, name: before[name] + 4}
 
 
 def test_kernel_raises_beyond_its_shared_memory_plan(cuda):
-    args = list(sweep_args(cuda, 4, 128, 512, 1, steps=2))
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_denoise_sweep(*args, deterministic=True)
+    for variant in ("v1", "v2"):
+        args = list(sweep_args(cuda, 4, 128, 512, 1, steps=2, variant=variant))
+        with pytest.raises(ValueError, match="shared memory"):
+            WRAPPERS[variant](*args, deterministic=True)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -112,3 +159,5 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     cpu_seed[5] = torch.tensor(0, dtype=torch.int64)
     with pytest.raises(TypeError, match="seed"):
         fused_denoise_sweep(*cpu_seed, deterministic=True)
+    with pytest.raises(ValueError, match="packed for v1"):
+        fused_denoise_sweep_v2(*args, deterministic=True)

@@ -161,6 +161,7 @@ def test_bridge_consumes_every_leaf(cores):
     # each torch parameter is filled from exactly one Flax leaf, and back
     assert _leaves(params["score"]) == len(list(tcore.score_network.parameters()))
     assert _leaves(params["policy"]) == len(list(tcore.policy_network.parameters()))
+    assert _leaves(params["decoder"]) == len(list(tcore.observation_decoder.parameters()))
     # the groups of the JAX agent's tree that later ports load are left
     later = {g: {"w": np.zeros(1, np.float32)} for g in ("value", "epistemic")}
     assert load_jax_params(tcore, {**params, **later}) == ("value", "epistemic")
