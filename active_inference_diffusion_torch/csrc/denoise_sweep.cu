@@ -49,8 +49,10 @@ struct TrunkOffsets {
 namespace {
 
 // Dynamic shared memory in floats; sweep_smem_bytes(..., "v1") in ops/denoise.py mirrors it.
+// bfloat16 weights add latent_proj's operand copy of the latent (TB x Dp).
+template <typename WT>
 __host__ __device__ inline size_t smem_floats(int D, int H) {
-  return (size_t)TB * (2 * round4(D) + 9 * H);
+  return (size_t)TB * ((sizeof(WT) == 2 ? 3 : 2) * round4(D) + 9 * H);
 }
 
 template <typename WT>
@@ -73,32 +75,34 @@ denoise_sweep_kernel(const float* __restrict__ z0,       // (B, D)
   float* sc = x + TB * H;        // TB x H   silu(obs_emb + t_emb)
   float* mod = sc + TB * H;      // TB x 2H  adaLN scale | shift
   float* mlp = mod + TB * H2;    // TB x 4H  MLP hidden; also v_proj and out_fc1 outputs
+  float* zr = sizeof(WT) == 2 ? mlp + TB * H4 : z;  // TB x Dp  latent_proj's operand
 
   const int row0 = blockIdx.x * TB;
   const unsigned seed = stochastic ? (unsigned)(*seed_ptr & 0xFFFFFFFFll) : 0u;
 
   // Rows past B (the ragged edge) compute on zeros and are never stored.
-  load_latent(z0, z, row0, B, D, Dp);
+  load_latent<WT>(z0, z, zr, row0, B, D, Dp);
   for (int s = 0; s < K; ++s) {
-    load_cond(obs_emb, t_embs + (size_t)s * H, sc, row0, B, H);
+    load_cond<WT>(obs_emb, t_embs + (size_t)s * H, sc, row0, B, H);
     __syncthreads();
-    mm<WT, EPI_STORE>(z, Dp, D, wbuf + off.lp_w, bbuf + off.lp_b, H, h, H);
+    mm<WT, EPI_STORE>(zr, Dp, D, wbuf + off.lp_w, bbuf + off.lp_b, H, h, H);
     __syncthreads();
     for (int l = 0; l < L; ++l) {
       const size_t lh = (size_t)l * H;
       mm<WT, EPI_STORE>(sc, H, H, wbuf + off.mod1_w + lh * H2, bbuf + off.mod1_b + l * H2, H2,
                         mod, H2);
       __syncthreads();
-      adaln(h, mod, H2, x, H);
+      adaln<WT>(h, mod, H2, x, H);
       __syncthreads();
-      mm<WT, EPI_STORE>(x, H, H, wbuf + off.v_w + lh * H, bbuf + off.v_b + lh, H, mlp, H);
+      mm<WT, EPI_STORE_OPERAND>(x, H, H, wbuf + off.v_w + lh * H, bbuf + off.v_b + lh, H, mlp,
+                                  H);
       __syncthreads();
       mm<WT, EPI_ADD>(mlp, H, H, wbuf + off.o_w + lh * H, bbuf + off.o_b + lh, H, h, H);
       __syncthreads();
       mm<WT, EPI_STORE>(sc, H, H, wbuf + off.mod2_w + lh * H2, bbuf + off.mod2_b + l * H2, H2,
                         mod, H2);
       __syncthreads();
-      adaln(h, mod, H2, x, H);
+      adaln<WT>(h, mod, H2, x, H);
       __syncthreads();
       mm<WT, EPI_GELU>(x, H, H, wbuf + off.f1_w + lh * H4, bbuf + off.f1_b + l * H4, H4, mlp,
                        H4);
@@ -109,13 +113,13 @@ denoise_sweep_kernel(const float* __restrict__ z0,       // (B, D)
     }
     mm<WT, EPI_STORE>(sc, H, H, wbuf + off.modf_w, bbuf + off.modf_b, H2, mod, H2);
     __syncthreads();
-    adaln(h, mod, H2, x, H);
+    adaln<WT>(h, mod, H2, x, H);
     __syncthreads();
     mm<WT, EPI_SILU>(x, H, H, wbuf + off.out1_w, bbuf + off.out1_b, H / 2, mlp, H / 2);
     __syncthreads();
     mm<WT, EPI_STORE>(mlp, H / 2, H / 2, wbuf + off.out2_w, nullptr, D, score, Dp);
     __syncthreads();
-    p_sample_update(z, score, coeffs + s * 8, Dp, D, mult, stochastic, seed, row0, s);
+    p_sample_update<WT>(z, zr, score, coeffs + s * 8, Dp, D, mult, stochastic, seed, row0, s);
     // The next step's first barrier orders these writes before latent_proj reads z.
   }
   __syncthreads();
@@ -127,7 +131,7 @@ int launch(const float* z0, const float* obs_emb, const float* t_embs, const flo
            const WT* wbuf, const float* bbuf, TrunkOffsets off, const long long* seed,
            float* out, int B, int D, int H, int L, int K, float mult, int stochastic,
            size_t smem_bytes, cudaStream_t stream) {
-  if (smem_bytes != smem_floats(D, H) * sizeof(float) || H % 8 != 0 || B <= 0 || K <= 0)
+  if (smem_bytes != smem_floats<WT>(D, H) * sizeof(float) || H % 8 != 0 || B <= 0 || K <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       denoise_sweep_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);

@@ -36,12 +36,24 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
 }
 
-template <int E>
+// The value an activation operand holds for weight type WT: rounded to bfloat16 (nearest
+// even) once, where it is written, for bfloat16 weights; unchanged for float32.
+template <typename WT>
+__device__ __forceinline__ float operand(float v) {
+  if constexpr (sizeof(WT) == 2) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// EPI_STORE_OPERAND stores an output that is the next product's activation operand.
+enum { EPI_STORE_OPERAND = 4 };
+
+template <typename WT, int E>
 __device__ __forceinline__ void store(float* y, float v) {
   if (E == EPI_STORE) *y = v;
   if (E == EPI_ADD) *y += v;
-  if (E == EPI_GELU) *y = gelu_tanh(v);
-  if (E == EPI_SILU) *y = silu(v);
+  if (E == EPI_GELU) *y = operand<WT>(gelu_tanh(v));
+  if (E == EPI_SILU) *y = operand<WT>(silu(v));
+  if (E == EPI_STORE_OPERAND) *y = operand<WT>(v);
 }
 
 // How one matmul operand pair is read for a stored weight type (see the header note).
@@ -59,9 +71,7 @@ struct Operand<__nv_bfloat16> {
   static __device__ __forceinline__ float w(const __nv_bfloat16* p) {
     return __bfloat162float(__ldg(p));
   }
-  static __device__ __forceinline__ float x(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
+  static __device__ __forceinline__ float x(float v) { return v; }  // rounded when written
 };
 
 // y[r, c] (E)= bias[c] + sum_k x[r, k] * W[k, c] for all TB rows and c < out.
@@ -105,7 +115,7 @@ __device__ __forceinline__ void mm_rows(const float* __restrict__ x, int ldx, in
     }
     const float b = bias ? __ldg(bias + c) : 0.f;
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) store<E>(y + (size_t)(r0 + r) * ldy + c, acc[r] + b);
+    for (int r = 0; r < RPT; ++r) store<WT, E>(y + (size_t)(r0 + r) * ldy + c, acc[r] + b);
   }
 }
 
@@ -130,6 +140,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // row. `mod` has row stride ldm and may lie in the block's device scratch, written earlier
 // in this launch: it is read with plain (coherent) loads, never __ldg, and carries no
 // __restrict__.
+template <typename WT>
 __device__ __forceinline__ void adaln(const float* __restrict__ h, const float* mod, int ldm,
                                       float* __restrict__ x, int H) {
   const int lane = threadIdx.x & 31;
@@ -146,7 +157,7 @@ __device__ __forceinline__ void adaln(const float* __restrict__ h, const float* 
     const float rstd = rsqrtf(warp_sum(v) / H + LN_EPS);
     const float* mr = mod + (size_t)r * ldm;
     for (int c = lane; c < H; c += 32)
-      x[r * H + c] = (hr[c] - mean) * rstd * (1.f + mr[c]) + mr[H + c];
+      x[r * H + c] = operand<WT>((hr[c] - mean) * rstd * (1.f + mr[c]) + mr[H + c]);
   }
 }
 
@@ -175,26 +186,31 @@ __device__ __forceinline__ float philox_normal(unsigned seed, unsigned row, unsi
 }
 
 // Load the block's rows of z0 (zeros past B and in the padded columns).
-__device__ __forceinline__ void load_latent(const float* __restrict__ z0, float* z, int row0,
-                                            int B, int D, int Dp) {
+// zr is latent_proj's operand copy of z (z itself for float32 weights).
+template <typename WT>
+__device__ __forceinline__ void load_latent(const float* __restrict__ z0, float* z, float* zr,
+                                            int row0, int B, int D, int Dp) {
   for (int i = threadIdx.x; i < TB * Dp; i += THREADS) {
     const int r = i / Dp, c = i % Dp, row = row0 + r;
     z[i] = (row < B && c < D) ? z0[(size_t)row * D + c] : 0.f;
+    zr[i] = operand<WT>(z[i]);
   }
 }
 
-// sc = silu(obs_emb + t_emb) for the block's rows at one step.
+// sc = silu(obs_emb + t_emb) for the block's rows at one step (an activation operand).
+template <typename WT>
 __device__ __forceinline__ void load_cond(const float* __restrict__ obs_emb,
                                           const float* __restrict__ te, float* sc, int row0,
                                           int B, int H) {
   for (int i = threadIdx.x; i < TB * H; i += THREADS) {
     const int r = i / H, c = i % H, row = row0 + r;
-    sc[i] = silu((row < B ? obs_emb[(size_t)row * H + c] : 0.f) + te[c]);
+    sc[i] = operand<WT>(silu((row < B ? obs_emb[(size_t)row * H + c] : 0.f) + te[c]));
   }
 }
 
 // The p_sample update of step s with the clipped, scaled score (coefficient row cf).
-__device__ __forceinline__ void p_sample_update(float* z, const float* score, const float* cf,
+template <typename WT>
+__device__ __forceinline__ void p_sample_update(float* z, float* zr, const float* score, const float* cf,
                                                 int Dp, int D, float mult, int stochastic,
                                                 unsigned seed, int row0, int s) {
   const float s1 = cf[0], s2 = cf[1], c1 = cf[2], c2 = cf[3], sd = cf[4], mask = cf[5];
@@ -206,6 +222,7 @@ __device__ __forceinline__ void p_sample_update(float* z, const float* score, co
     float m = c1 * pz0 + c2 * zi;
     if (stochastic && mask != 0.f) m += mask * sd * philox_normal(seed, row0 + r, s, c);
     z[r * Dp + c] = m;
+    zr[r * Dp + c] = operand<WT>(m);
   }
 }
 

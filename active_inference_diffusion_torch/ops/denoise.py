@@ -268,14 +268,16 @@ def packed_trunk_weights(
     return packed
 
 
-def sweep_smem_bytes(latent_dim: int, hidden_dim: int, variant: str = "v1") -> int:
+def sweep_smem_bytes(latent_dim: int, hidden_dim: int, variant: str = "v1",
+                     dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory of one kernel block, float32 throughout: for TB
     rows, the latent and score (each padded to a multiple of 4 columns), the
     residual stream, the normalised input, silu(cond) (H each) and the MLP
     hidden (4H); v1 also the modulation (2H), which v2 keeps in device
     scratch. Mirrors ``smem_floats`` in each kernel."""
     d_pad = -(-latent_dim // 4) * 4
-    per_row = 2 * d_pad + (9 if variant == "v1" else 7) * hidden_dim
+    latents = 3 if dtype == torch.bfloat16 else 2  # bf16: latent_proj's operand copy
+    per_row = latents * d_pad + (9 if variant == "v1" else 7) * hidden_dim
     return 4 * ROWS_PER_BLOCK * per_row
 
 
@@ -479,7 +481,7 @@ def _sweep(variant, schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num
     h = obs_emb.shape[-1]
     if h % 8:
         raise ValueError(f"the kernel needs hidden_dim % 8 == 0, got {h}")
-    smem = sweep_smem_bytes(d, h, variant)
+    smem = sweep_smem_bytes(d, h, variant, weights.dtype)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{name} at latent_dim={d}, hidden_dim={h} needs {smem} bytes of shared "
