@@ -1,11 +1,9 @@
 // The fused K-step reverse-diffusion belief sweep (v1), for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel active_inference_diffusion_tpu/ops/denoise.py::_denoise_kernel
-// (reached through fused_denoise_sweep), in both of its weight modes: float32 weights
-// (aid_denoise_sweep) and bfloat16 weights with float32 accumulation
-// (aid_denoise_sweep_bf16, compute_dtype="bfloat16"; see sweep_common.cuh for which
-// operands are rounded). One launch runs the whole sweep. Each block owns TB batch rows
-// and loops over the K steps and the L DiT blocks itself:
+// (reached through fused_denoise_sweep) with float32 weights (aid_denoise_sweep); its
+// bfloat16 mode is denoise_sweep_bf16.cu. One launch runs the whole sweep. Each block owns
+// TB batch rows and loops over the K steps and the L DiT blocks itself:
 //   cond = silu(obs_emb + t_emb[step])
 //   h = latent_proj(z)
 //   L x [ h += out_proj(v_proj(adaLN1(h))); h += fc2(gelu_tanh(fc1(adaLN2(h)))) ]
@@ -16,8 +14,8 @@
 //
 // What bounds it on the card. The work is 2 x (trunk weights) x B x K operations: 18.2
 // GFLOP at the flagship width (B 256, latent 32, hidden 128, L 6, K 25), 145.8 GFLOP at
-// the humanoid_state.yaml width (latent 64, hidden 256, K 50). The trunk (5.7 MB f32 /
-// 11.4 MB bf16 at the humanoid width) is far over one SM's 227 KB of shared memory and
+// the humanoid_state.yaml width (latent 64, hidden 256, K 50). The trunk (5.7 MB at the
+// humanoid width) is far over one SM's 227 KB of shared memory and
 // well inside the 50 MB L2. The TPU kernel kept all weights in VMEM; here they cannot stay
 // on chip, so the bound in practice is the dependent chain: per matmul, weights re-read
 // from L2 and a block-wide barrier, with only ceil(B / TB) blocks in flight.
@@ -26,8 +24,8 @@
 // reused across the block's TB rows (held in registers as TB/G accumulators); all
 // activations (latent, residual stream, normalised input, silu(cond), modulation, MLP
 // hidden) stay in shared memory for all K steps, so nothing but the final latent goes
-// back to device memory. bfloat16 weights halve the L2 traffic; the products still run
-// on the CUDA cores in float32. No tensor cores, TMA or clusters yet: later work.
+// back to device memory. The products run on the CUDA cores in float32. No tensor cores,
+// TMA or clusters yet: later work (the bfloat16 kernels have them).
 //
 // Plain C interface, bound from Python with ctypes (ops/_build.py, ops/denoise.py).
 
@@ -49,10 +47,8 @@ struct TrunkOffsets {
 namespace {
 
 // Dynamic shared memory in floats; sweep_smem_bytes(..., "v1") in ops/denoise.py mirrors it.
-// bfloat16 weights add latent_proj's operand copy of the latent (TB x Dp).
-template <typename WT>
 __host__ __device__ inline size_t smem_floats(int D, int H) {
-  return (size_t)TB * ((sizeof(WT) == 2 ? 3 : 2) * round4(D) + 9 * H);
+  return (size_t)TB * (2 * round4(D) + 9 * H);
 }
 
 template <typename WT>
@@ -75,34 +71,32 @@ denoise_sweep_kernel(const float* __restrict__ z0,       // (B, D)
   float* sc = x + TB * H;        // TB x H   silu(obs_emb + t_emb)
   float* mod = sc + TB * H;      // TB x 2H  adaLN scale | shift
   float* mlp = mod + TB * H2;    // TB x 4H  MLP hidden; also v_proj and out_fc1 outputs
-  float* zr = sizeof(WT) == 2 ? mlp + TB * H4 : z;  // TB x Dp  latent_proj's operand
 
   const int row0 = blockIdx.x * TB;
   const unsigned seed = stochastic ? (unsigned)(*seed_ptr & 0xFFFFFFFFll) : 0u;
 
   // Rows past B (the ragged edge) compute on zeros and are never stored.
-  load_latent<WT>(z0, z, zr, row0, B, D, Dp);
+  load_latent(z0, z, row0, B, D, Dp);
   for (int s = 0; s < K; ++s) {
-    load_cond<WT>(obs_emb, t_embs + (size_t)s * H, sc, row0, B, H);
+    load_cond(obs_emb, t_embs + (size_t)s * H, sc, row0, B, H);
     __syncthreads();
-    mm<WT, EPI_STORE>(zr, Dp, D, wbuf + off.lp_w, bbuf + off.lp_b, H, h, H);
+    mm<WT, EPI_STORE>(z, Dp, D, wbuf + off.lp_w, bbuf + off.lp_b, H, h, H);
     __syncthreads();
     for (int l = 0; l < L; ++l) {
       const size_t lh = (size_t)l * H;
       mm<WT, EPI_STORE>(sc, H, H, wbuf + off.mod1_w + lh * H2, bbuf + off.mod1_b + l * H2, H2,
                         mod, H2);
       __syncthreads();
-      adaln<WT>(h, mod, H2, x, H);
+      adaln(h, mod, H2, x, H);
       __syncthreads();
-      mm<WT, EPI_STORE_OPERAND>(x, H, H, wbuf + off.v_w + lh * H, bbuf + off.v_b + lh, H, mlp,
-                                  H);
+      mm<WT, EPI_STORE>(x, H, H, wbuf + off.v_w + lh * H, bbuf + off.v_b + lh, H, mlp, H);
       __syncthreads();
       mm<WT, EPI_ADD>(mlp, H, H, wbuf + off.o_w + lh * H, bbuf + off.o_b + lh, H, h, H);
       __syncthreads();
       mm<WT, EPI_STORE>(sc, H, H, wbuf + off.mod2_w + lh * H2, bbuf + off.mod2_b + l * H2, H2,
                         mod, H2);
       __syncthreads();
-      adaln<WT>(h, mod, H2, x, H);
+      adaln(h, mod, H2, x, H);
       __syncthreads();
       mm<WT, EPI_GELU>(x, H, H, wbuf + off.f1_w + lh * H4, bbuf + off.f1_b + l * H4, H4, mlp,
                        H4);
@@ -113,13 +107,13 @@ denoise_sweep_kernel(const float* __restrict__ z0,       // (B, D)
     }
     mm<WT, EPI_STORE>(sc, H, H, wbuf + off.modf_w, bbuf + off.modf_b, H2, mod, H2);
     __syncthreads();
-    adaln<WT>(h, mod, H2, x, H);
+    adaln(h, mod, H2, x, H);
     __syncthreads();
     mm<WT, EPI_SILU>(x, H, H, wbuf + off.out1_w, bbuf + off.out1_b, H / 2, mlp, H / 2);
     __syncthreads();
     mm<WT, EPI_STORE>(mlp, H / 2, H / 2, wbuf + off.out2_w, nullptr, D, score, Dp);
     __syncthreads();
-    p_sample_update<WT>(z, zr, score, coeffs + s * 8, Dp, D, mult, stochastic, seed, row0, s);
+    p_sample_update(z, score, coeffs + s * 8, Dp, D, mult, stochastic, seed, row0, s);
     // The next step's first barrier orders these writes before latent_proj reads z.
   }
   __syncthreads();
@@ -131,7 +125,7 @@ int launch(const float* z0, const float* obs_emb, const float* t_embs, const flo
            const WT* wbuf, const float* bbuf, TrunkOffsets off, const long long* seed,
            float* out, int B, int D, int H, int L, int K, float mult, int stochastic,
            size_t smem_bytes, cudaStream_t stream) {
-  if (smem_bytes != smem_floats<WT>(D, H) * sizeof(float) || H % 8 != 0 || B <= 0 || K <= 0)
+  if (smem_bytes != smem_floats(D, H) * sizeof(float) || H % 8 != 0 || B <= 0 || K <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       denoise_sweep_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
@@ -156,16 +150,6 @@ int aid_denoise_sweep(const float* z0, const float* obs_emb, const float* t_embs
                       cudaStream_t stream) {
   return launch<float>(z0, obs_emb, t_embs, coeffs, wbuf, bbuf, off, seed, out, B, D, H, L, K,
                        mult, stochastic, smem_bytes, stream);
-}
-
-// The same sweep with bfloat16 matmul weights (compute_dtype="bfloat16").
-int aid_denoise_sweep_bf16(const float* z0, const float* obs_emb, const float* t_embs,
-                           const float* coeffs, const __nv_bfloat16* wbuf, const float* bbuf,
-                           TrunkOffsets off, const long long* seed, float* out, int B, int D,
-                           int H, int L, int K, float mult, int stochastic, size_t smem_bytes,
-                           cudaStream_t stream) {
-  return launch<__nv_bfloat16>(z0, obs_emb, t_embs, coeffs, wbuf, bbuf, off, seed, out, B, D,
-                               H, L, K, mult, stochastic, smem_bytes, stream);
 }
 
 const char* aid_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

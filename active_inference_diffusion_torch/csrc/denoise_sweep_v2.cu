@@ -1,8 +1,8 @@
 // The fused K-step reverse-diffusion belief sweep, v2 algebra, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel active_inference_diffusion_tpu/ops/denoise.py::_denoise_kernel_v2
-// (reached through fused_denoise_sweep_v2, denoiser_kernel="v2"), with float32 weights
-// (aid_denoise_sweep_v2) and bfloat16 weights (aid_denoise_sweep_v2_bf16). It computes the
+// (reached through fused_denoise_sweep_v2, denoiser_kernel="v2") with float32 weights
+// (aid_denoise_sweep_v2); its bfloat16 mode is denoise_sweep_bf16.cu. It computes the
 // same sweep as denoise_sweep.cu with two exact algebraic fusions, made on the host when
 // the weights are packed (ops/denoise.py::extract_trunk_weights_v2):
 //   - the single-token attention out_proj(v_proj(x)) is one matmul with vo_w = Wv @ Wo,
@@ -41,10 +41,8 @@ struct TrunkOffsetsV2 {
 namespace {
 
 // Dynamic shared memory in floats; sweep_smem_bytes(..., "v2") in ops/denoise.py mirrors it.
-// bfloat16 weights add latent_proj's operand copy of the latent (TB x Dp).
-template <typename WT>
 __host__ __device__ inline size_t smem_floats(int D, int H) {
-  return (size_t)TB * ((sizeof(WT) == 2 ? 3 : 2) * round4(D) + 7 * H);
+  return (size_t)TB * (2 * round4(D) + 7 * H);
 }
 
 template <typename WT>
@@ -67,27 +65,26 @@ denoise_sweep_v2_kernel(const float* __restrict__ z0,       // (B, D)
   float* x = h + TB * H;         // TB x H   normalised + modulated input
   float* sc = x + TB * H;        // TB x H   silu(obs_emb + t_emb)
   float* mlp = sc + TB * H;      // TB x 4H  MLP hidden; also the out_fc1 output
-  float* zr = sizeof(WT) == 2 ? mlp + TB * H4 : z;  // TB x Dp  latent_proj's operand
   float* mods = scratch + (size_t)blockIdx.x * TB * M;  // TB x M, device memory
 
   const int row0 = blockIdx.x * TB;
   const unsigned seed = stochastic ? (unsigned)(*seed_ptr & 0xFFFFFFFFll) : 0u;
 
-  load_latent<WT>(z0, z, zr, row0, B, D, Dp);
+  load_latent(z0, z, row0, B, D, Dp);
   for (int s = 0; s < K; ++s) {
-    load_cond<WT>(obs_emb, t_embs + (size_t)s * H, sc, row0, B, H);
+    load_cond(obs_emb, t_embs + (size_t)s * H, sc, row0, B, H);
     __syncthreads();
     // Two independent products in one phase: every modulation of the step, and latent_proj.
     mm<WT, EPI_STORE>(sc, H, H, wbuf + off.mod_w, bbuf + off.mod_b, M, mods, M);
-    mm<WT, EPI_STORE>(zr, Dp, D, wbuf + off.lp_w, bbuf + off.lp_b, H, h, H);
+    mm<WT, EPI_STORE>(z, Dp, D, wbuf + off.lp_w, bbuf + off.lp_b, H, h, H);
     __syncthreads();
     for (int l = 0; l < L; ++l) {
       const size_t lh = (size_t)l * H;
-      adaln<WT>(h, mods + l * H4, M, x, H);
+      adaln(h, mods + l * H4, M, x, H);
       __syncthreads();
       mm<WT, EPI_ADD>(x, H, H, wbuf + off.vo_w + lh * H, bbuf + off.vo_b + lh, H, h, H);
       __syncthreads();
-      adaln<WT>(h, mods + l * H4 + H2, M, x, H);
+      adaln(h, mods + l * H4 + H2, M, x, H);
       __syncthreads();
       mm<WT, EPI_GELU>(x, H, H, wbuf + off.f1_w + lh * H4, bbuf + off.f1_b + l * H4, H4, mlp,
                        H4);
@@ -96,13 +93,13 @@ denoise_sweep_v2_kernel(const float* __restrict__ z0,       // (B, D)
                       H, h, H);
       __syncthreads();
     }
-    adaln<WT>(h, mods + L * H4, M, x, H);
+    adaln(h, mods + L * H4, M, x, H);
     __syncthreads();
     mm<WT, EPI_SILU>(x, H, H, wbuf + off.out1_w, bbuf + off.out1_b, H / 2, mlp, H / 2);
     __syncthreads();
     mm<WT, EPI_STORE>(mlp, H / 2, H / 2, wbuf + off.out2_w, nullptr, D, score, Dp);
     __syncthreads();
-    p_sample_update<WT>(z, zr, score, coeffs + s * 8, Dp, D, mult, stochastic, seed, row0, s);
+    p_sample_update(z, score, coeffs + s * 8, Dp, D, mult, stochastic, seed, row0, s);
     // The next step's first barrier orders these writes (and this step's last reads of
     // mods) before the next modulation product and latent_proj.
   }
@@ -115,7 +112,7 @@ int launch(const float* z0, const float* obs_emb, const float* t_embs, const flo
            const WT* wbuf, const float* bbuf, TrunkOffsetsV2 off, const long long* seed,
            float* scratch, float* out, int B, int D, int H, int L, int K, float mult,
            int stochastic, size_t smem_bytes, cudaStream_t stream) {
-  if (smem_bytes != smem_floats<WT>(D, H) * sizeof(float) || H % 8 != 0 || B <= 0 || K <= 0)
+  if (smem_bytes != smem_floats(D, H) * sizeof(float) || H % 8 != 0 || B <= 0 || K <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(denoise_sweep_v2_kernel<WT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -142,16 +139,6 @@ int aid_denoise_sweep_v2(const float* z0, const float* obs_emb, const float* t_e
                          size_t smem_bytes, cudaStream_t stream) {
   return launch<float>(z0, obs_emb, t_embs, coeffs, wbuf, bbuf, off, seed, scratch, out, B, D,
                        H, L, K, mult, stochastic, smem_bytes, stream);
-}
-
-// The same sweep with bfloat16 matmul weights (compute_dtype="bfloat16").
-int aid_denoise_sweep_v2_bf16(const float* z0, const float* obs_emb, const float* t_embs,
-                              const float* coeffs, const __nv_bfloat16* wbuf, const float* bbuf,
-                              TrunkOffsetsV2 off, const long long* seed, float* scratch,
-                              float* out, int B, int D, int H, int L, int K, float mult,
-                              int stochastic, size_t smem_bytes, cudaStream_t stream) {
-  return launch<__nv_bfloat16>(z0, obs_emb, t_embs, coeffs, wbuf, bbuf, off, seed, scratch,
-                               out, B, D, H, L, K, mult, stochastic, smem_bytes, stream);
 }
 
 const char* aid_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

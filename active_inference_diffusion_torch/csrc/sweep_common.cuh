@@ -1,17 +1,12 @@
-// Pieces shared by the belief-sweep kernels (denoise_sweep.cu, denoise_sweep_v2.cu).
+// Pieces shared by the belief-sweep kernels: the float32 kernels (denoise_sweep.cu,
+// denoise_sweep_v2.cu) use all of it; the bfloat16 kernels (denoise_sweep_bf16.cu) use the
+// constants, activations and the Philox draw.
 //
-// Block plan: TB batch rows per block, THREADS threads; activations live in shared memory
-// (or, for v2's wide modulation output, in a per-block device-memory scratch) and weights
-// are streamed from global memory (L2-resident at the widths the port serves).
-//
-// Weight type. Each matmul helper is templated on the stored weight type WT:
-//   float          products and sum in float32;
-//   __nv_bfloat16  the weight is widened to float32 exactly and the activation operand is
-//                  rounded to bfloat16 (round to nearest even) before the product, so each
-//                  product of two bfloat16 values is exact in float32 and the sum is float32:
-//                  the arithmetic of `jnp.dot(x.astype(bf16), w_bf16,
-//                  preferred_element_type=f32)` in the TPU kernels' bfloat16 mode.
-// Biases, LayerNorm, silu(cond), the score clip and the p_sample update stay float32.
+// Block plan of the float32 kernels: TB batch rows per block, THREADS threads; activations
+// live in shared memory (or, for v2's wide modulation output, in a per-block device-memory
+// scratch) and weights are streamed from global memory (L2-resident at the widths the port
+// serves). Products and sums in float32. Biases, LayerNorm, silu(cond), the score clip and
+// the p_sample update are float32 in every kernel.
 
 #pragma once
 
@@ -36,27 +31,15 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
 }
 
-// The value an activation operand holds for weight type WT: rounded to bfloat16 (nearest
-// even) once, where it is written, for bfloat16 weights; unchanged for float32.
-template <typename WT>
-__device__ __forceinline__ float operand(float v) {
-  if constexpr (sizeof(WT) == 2) return __bfloat162float(__float2bfloat16_rn(v));
-  return v;
-}
-
-// EPI_STORE_OPERAND stores an output that is the next product's activation operand.
-enum { EPI_STORE_OPERAND = 4 };
-
-template <typename WT, int E>
+template <int E>
 __device__ __forceinline__ void store(float* y, float v) {
   if (E == EPI_STORE) *y = v;
   if (E == EPI_ADD) *y += v;
-  if (E == EPI_GELU) *y = operand<WT>(gelu_tanh(v));
-  if (E == EPI_SILU) *y = operand<WT>(silu(v));
-  if (E == EPI_STORE_OPERAND) *y = operand<WT>(v);
+  if (E == EPI_GELU) *y = gelu_tanh(v);
+  if (E == EPI_SILU) *y = silu(v);
 }
 
-// How one matmul operand pair is read for a stored weight type (see the header note).
+// How one matmul operand pair is read for a stored weight type (float32 only).
 template <typename WT>
 struct Operand;
 
@@ -64,14 +47,6 @@ template <>
 struct Operand<float> {
   static __device__ __forceinline__ float w(const float* p) { return __ldg(p); }
   static __device__ __forceinline__ float x(float v) { return v; }
-};
-
-template <>
-struct Operand<__nv_bfloat16> {
-  static __device__ __forceinline__ float w(const __nv_bfloat16* p) {
-    return __bfloat162float(__ldg(p));
-  }
-  static __device__ __forceinline__ float x(float v) { return v; }  // rounded when written
 };
 
 // y[r, c] (E)= bias[c] + sum_k x[r, k] * W[k, c] for all TB rows and c < out.
@@ -115,7 +90,7 @@ __device__ __forceinline__ void mm_rows(const float* __restrict__ x, int ldx, in
     }
     const float b = bias ? __ldg(bias + c) : 0.f;
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) store<WT, E>(y + (size_t)(r0 + r) * ldy + c, acc[r] + b);
+    for (int r = 0; r < RPT; ++r) store<E>(y + (size_t)(r0 + r) * ldy + c, acc[r] + b);
   }
 }
 
@@ -140,7 +115,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 // row. `mod` has row stride ldm and may lie in the block's device scratch, written earlier
 // in this launch: it is read with plain (coherent) loads, never __ldg, and carries no
 // __restrict__.
-template <typename WT>
 __device__ __forceinline__ void adaln(const float* __restrict__ h, const float* mod, int ldm,
                                       float* __restrict__ x, int H) {
   const int lane = threadIdx.x & 31;
@@ -157,7 +131,7 @@ __device__ __forceinline__ void adaln(const float* __restrict__ h, const float* 
     const float rstd = rsqrtf(warp_sum(v) / H + LN_EPS);
     const float* mr = mod + (size_t)r * ldm;
     for (int c = lane; c < H; c += 32)
-      x[r * H + c] = operand<WT>((hr[c] - mean) * rstd * (1.f + mr[c]) + mr[H + c]);
+      x[r * H + c] = (hr[c] - mean) * rstd * (1.f + mr[c]) + mr[H + c];
   }
 }
 
@@ -186,31 +160,26 @@ __device__ __forceinline__ float philox_normal(unsigned seed, unsigned row, unsi
 }
 
 // Load the block's rows of z0 (zeros past B and in the padded columns).
-// zr is latent_proj's operand copy of z (z itself for float32 weights).
-template <typename WT>
-__device__ __forceinline__ void load_latent(const float* __restrict__ z0, float* z, float* zr,
-                                            int row0, int B, int D, int Dp) {
+__device__ __forceinline__ void load_latent(const float* __restrict__ z0, float* z, int row0,
+                                            int B, int D, int Dp) {
   for (int i = threadIdx.x; i < TB * Dp; i += THREADS) {
     const int r = i / Dp, c = i % Dp, row = row0 + r;
     z[i] = (row < B && c < D) ? z0[(size_t)row * D + c] : 0.f;
-    zr[i] = operand<WT>(z[i]);
   }
 }
 
-// sc = silu(obs_emb + t_emb) for the block's rows at one step (an activation operand).
-template <typename WT>
+// sc = silu(obs_emb + t_emb) for the block's rows at one step.
 __device__ __forceinline__ void load_cond(const float* __restrict__ obs_emb,
                                           const float* __restrict__ te, float* sc, int row0,
                                           int B, int H) {
   for (int i = threadIdx.x; i < TB * H; i += THREADS) {
     const int r = i / H, c = i % H, row = row0 + r;
-    sc[i] = operand<WT>(silu((row < B ? obs_emb[(size_t)row * H + c] : 0.f) + te[c]));
+    sc[i] = silu((row < B ? obs_emb[(size_t)row * H + c] : 0.f) + te[c]);
   }
 }
 
 // The p_sample update of step s with the clipped, scaled score (coefficient row cf).
-template <typename WT>
-__device__ __forceinline__ void p_sample_update(float* z, float* zr, const float* score, const float* cf,
+__device__ __forceinline__ void p_sample_update(float* z, const float* score, const float* cf,
                                                 int Dp, int D, float mult, int stochastic,
                                                 unsigned seed, int row0, int s) {
   const float s1 = cf[0], s2 = cf[1], c1 = cf[2], c2 = cf[3], sd = cf[4], mask = cf[5];
@@ -222,7 +191,6 @@ __device__ __forceinline__ void p_sample_update(float* z, float* zr, const float
     float m = c1 * pz0 + c2 * zi;
     if (stochastic && mask != 0.f) m += mask * sd * philox_normal(seed, row0 + r, s, c);
     z[r * Dp + c] = m;
-    zr[r * Dp + c] = operand<WT>(m);
   }
 }
 

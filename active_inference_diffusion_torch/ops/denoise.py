@@ -10,14 +10,23 @@ head), the score clip and the p_sample update with in-kernel Gaussian noise.
 - ``fused_denoise_sweep`` and ``fused_denoise_sweep_v2`` are the wrappers.
   For a CUDA tensor they launch the kernel of the packed weights' variant
   and type (``KERNELS``; sources ``csrc/denoise_sweep.cu`` and
-  ``csrc/denoise_sweep_v2.cu``, built on first use by ``ops/_build.py``) or
-  raise; for a CPU tensor they run ``denoise_sweep_reference``. Launches are
-  counted per kernel in ``LAUNCHES``.
+  ``csrc/denoise_sweep_v2.cu`` for float32 weights,
+  ``csrc/denoise_sweep_bf16.cu`` for bfloat16, built on first use by
+  ``ops/_build.py``) or raise; for a CPU tensor they run
+  ``denoise_sweep_reference``. Launches are counted per kernel in
+  ``LAUNCHES``.
 - bfloat16 mode (``compute_dtype="bfloat16"``): the matmul weights (the
   ``*_w`` arrays) are stored in bfloat16, the activation operand of every
   product is rounded to bfloat16, products are exact and sums float32.
   Biases, LayerNorm, silu(cond), the score clip and the p_sample update stay
   float32. This is what the TPU kernels' ``x.astype(w.dtype)`` computes.
+  The bfloat16 kernels run each 16-row tile on a cluster of
+  ``KERNEL_CLUSTER`` CTAs, each owning 1/``KERNEL_CLUSTER`` of every
+  product's output columns, with tensor-core products; they read the
+  weights from a second buffer of the pack in their own order
+  (``kernel_layout``). They take hidden widths that are a multiple of
+  8 x ``KERNEL_CLUSTER`` (64); the latent and out_fc1's width are padded to
+  that multiple with zero weights.
 - The noise is a counter-based Philox4x32-10 followed by Box-Muller, keyed by
   (seed, global batch row) with counter (sweep step, latent column), so a
   draw depends neither on how the batch is tiled nor on the variant.
@@ -49,6 +58,16 @@ from ..models.common import LN_EPS
 ROWS_PER_BLOCK = 16
 # Dynamic shared memory one block may use on an H100 (227 KB).
 MAX_SMEM_BYTES = 232448
+# The bfloat16 kernels' plan; each must equal its namesake in csrc/denoise_sweep_bf16.cu:
+# CTAs per 16-row tile (CLUSTER), the bytes of one staged piece of weights (SLOT_BYTES),
+# the ring's slots (STAGES), n-tiles of 8 columns per chunk (CHUNK_TILES), entries of a
+# rank's piece table (MAX_PIECES).
+KERNEL_CLUSTER = 8
+SLOT_BYTES = 32768 + 512
+STAGES = 3
+CHUNK_TILES = 16
+MAX_PIECES = 512
+_FRAG_BYTES = 32 * 8  # one m16n8k16 B fragment of a warp
 
 # Packed-buffer order per variant; the kernels' TrunkOffsets / TrunkOffsetsV2
 # list the same fields in the same order.
@@ -68,10 +87,12 @@ PACK_ORDER = {
 # kernel name -> (variant, weight type, library, C function)
 KERNELS = {
     "denoise_sweep_v1_f32": ("v1", torch.float32, "denoise_sweep", "aid_denoise_sweep"),
-    "denoise_sweep_v1_bf16": ("v1", torch.bfloat16, "denoise_sweep", "aid_denoise_sweep_bf16"),
+    "denoise_sweep_v1_bf16": (
+        "v1", torch.bfloat16, "denoise_sweep_bf16", "aid_denoise_sweep_bf16",
+    ),
     "denoise_sweep_v2_f32": ("v2", torch.float32, "denoise_sweep_v2", "aid_denoise_sweep_v2"),
     "denoise_sweep_v2_bf16": (
-        "v2", torch.bfloat16, "denoise_sweep_v2", "aid_denoise_sweep_v2_bf16",
+        "v2", torch.bfloat16, "denoise_sweep_bf16", "aid_denoise_sweep_v2_bf16",
     ),
 }
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
@@ -186,13 +207,28 @@ def extract_trunk_weights_v2(w: Dict[str, torch.Tensor]) -> Dict[str, torch.Tens
     }
 
 
+class KernelLayout(NamedTuple):
+    """The bfloat16 kernels' copy of a pack (``kernel_layout``): ``weights``
+    (bfloat16 words) holds, per product, per cluster rank, per chunk of at
+    most ``CHUNK_TILES`` n-tiles and per piece of k-steps, the rank's columns
+    in mma.sync B-fragment order; a chunk's first piece starts with the
+    chunk's float32 biases. ``pieces`` (int32, ``(KERNEL_CLUSTER, P, 2)``)
+    holds each piece's (offset in 16-byte units, bytes) for one sweep step,
+    per rank."""
+
+    weights: torch.Tensor
+    pieces: torch.Tensor
+
+
 class PackedTrunk(NamedTuple):
     """Trunk weights of one sweep variant in two contiguous buffers:
     ``weights`` holds the ``*_w`` arrays in the weight type (float32 or
     bfloat16), ``biases`` the ``*_b`` arrays in float32.
 
     ``offsets[name] = (element offset in its buffer, shape)``; each entry
-    starts on a 16-byte boundary. ``output_multiplier`` is a plain float."""
+    starts on a 16-byte boundary. ``output_multiplier`` is a plain float.
+    A bfloat16 pack whose widths the bfloat16 kernels take also carries
+    their ``KernelLayout`` in ``kernel``."""
 
     variant: str
     weights: torch.Tensor
@@ -202,6 +238,7 @@ class PackedTrunk(NamedTuple):
     hidden_dim: int
     num_layers: int
     output_multiplier: float
+    kernel: Optional[KernelLayout] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -214,6 +251,106 @@ class PackedTrunk(NamedTuple):
             ].view(shape)
             for name, (off, shape) in self.offsets.items()
         }
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def kernel_products(packed: PackedTrunk) -> List[Tuple[torch.Tensor, Optional[torch.Tensor], bool]]:
+    """The products of one sweep step in the bfloat16 kernels' order, as
+    (weight (in, out), bias or None, is a modulation): latent_proj; per
+    layer the first modulation, v_proj and out_proj (v1) or the composed vo
+    (v2), the second modulation, fc1, fc2; the final modulation, out_fc1,
+    out_fc2. v2's modulations are its 2L+1 sites of ``mod_w``, taken in
+    turn. A modulation's columns are [scale | shift]."""
+    v = packed.views()
+    h2 = 2 * packed.hidden_dim
+    if packed.variant == "v1":
+        mods = [(v[f"mod{k}_w"][l], v[f"mod{k}_b"][l], True)
+                for l in range(packed.num_layers) for k in (1, 2)]
+        mods.append((v["modf_w"], v["modf_b"], True))
+    else:
+        mods = [(v["mod_w"][:, j * h2 : (j + 1) * h2], v["mod_b"][j * h2 : (j + 1) * h2], True)
+                for j in range(2 * packed.num_layers + 1)]
+    products = [(v["latent_proj_w"], v["latent_proj_b"], False)]
+    for l in range(packed.num_layers):
+        products.append(mods[2 * l])
+        if packed.variant == "v1":
+            products += [(v["v_w"][l], v["v_b"][l], False), (v["o_w"][l], v["o_b"][l], False)]
+        else:
+            products.append((v["vo_w"][l], v["vo_b"][l], False))
+        products += [mods[2 * l + 1], (v["f1_w"][l], v["f1_b"][l], False),
+                     (v["f2_w"][l], v["f2_b"][l], False)]
+    return products + [mods[-1], (v["out1_w"], v["out1_b"], False), (v["out2_w"], None, False)]
+
+
+def rank_columns(out: int, modulation: bool, rank: int) -> torch.Tensor:
+    """Output columns of one product that cluster rank ``rank`` computes, in
+    its slice's order. A plain product's columns are padded to a multiple of
+    8 x ``KERNEL_CLUSTER`` (indices >= ``out`` are zero columns) and split in
+    contiguous slices; a modulation's rank takes the scale and the shift
+    columns of its own h-columns."""
+    c = KERNEL_CLUSTER
+    if modulation:
+        hc = out // 2 // c
+        own = torch.arange(rank * hc, (rank + 1) * hc)
+        return torch.cat([own, out // 2 + own])
+    width = _round_up(out, 8 * c) // c
+    return torch.arange(rank * width, (rank + 1) * width)
+
+
+def _pieces(n_tiles: int, k_steps: int) -> int:
+    """Pieces a chunk's k-steps are cut into: the fewest equal ones whose
+    fragments fit a slot beside the largest bias head."""
+    budget = SLOT_BYTES - 32 * CHUNK_TILES
+    return next(p for p in range(1, k_steps + 1)
+                if k_steps % p == 0 and n_tiles * (k_steps // p) * _FRAG_BYTES <= budget)
+
+
+def kernel_layout(packed: PackedTrunk) -> KernelLayout:
+    """The bfloat16 kernels' weight order for ``packed`` (see ``KernelLayout``).
+
+    B fragment of mma.sync m16n8k16 (row.col): lane = 4 g + t holds
+    W[k0 + 2t + {0, 1, 8, 9}, n0 + g], 8 contiguous bytes; a piece is
+    [n-tile][k-step][lane][4], after the chunk's 8 x n-tiles float32 biases
+    in its first piece. Input widths are padded with zero rows to a multiple
+    of 8 x ``KERNEL_CLUSTER``, as the kernels' operand copies are."""
+    c = KERNEL_CLUSTER
+    wparts: List[torch.Tensor] = []
+    table: List[List[Tuple[int, int]]] = [[] for _ in range(c)]
+    cursor = 0
+    for w, b, modulation in kernel_products(packed):
+        k, n = w.shape
+        kp = _round_up(k, 8 * c)
+        wp = w.new_zeros(kp, _round_up(n, 8 * c))
+        wp[:k, :n] = w
+        bp = torch.zeros(wp.shape[1], dtype=torch.float32, device=w.device)
+        if b is not None:
+            bp[:n] = b
+        for r in range(c):
+            cols = rank_columns(n, modulation, r).to(w.device)
+            wr = wp[:, cols]
+            br = bp[cols]
+            n_tiles, k_steps = wr.shape[1] // 8, kp // 16
+            for n0 in range(0, n_tiles, CHUNK_TILES):
+                ntc = min(CHUNK_TILES, n_tiles - n0)
+                # [k = 16 ks + 8 jhi + 2 t + jlo, n = 8 nt + g] -> [nt, ks, g, t, jhi, jlo]
+                frag = wr[:, 8 * n0 : 8 * (n0 + ntc)].reshape(k_steps, 2, 4, 2, ntc, 8)
+                frag = frag.permute(4, 0, 5, 2, 1, 3)
+                pieces = _pieces(ntc, k_steps)
+                frag = frag.reshape(ntc, pieces, k_steps // pieces, 128).transpose(0, 1)
+                for q in range(pieces):
+                    part = frag[q].reshape(-1)
+                    if q == 0:
+                        part = torch.cat([br[8 * n0 : 8 * (n0 + ntc)].view(w.dtype), part])
+                    table[r].append((cursor * 2 // 16, part.numel() * 2))
+                    wparts.append(part)
+                    cursor += part.numel()
+    return KernelLayout(
+        weights=torch.cat(wparts).contiguous(),
+        pieces=torch.tensor(table, dtype=torch.int32, device=packed.weights.device),
+    )
 
 
 def pack_trunk_weights(
@@ -235,7 +372,7 @@ def pack_trunk_weights(
             parts[is_w].append(t.new_zeros(pad))
         cursor[is_w] += t.numel() + pad
     lp = weights["latent_proj_w"]
-    return PackedTrunk(
+    packed = PackedTrunk(
         variant=variant,
         weights=torch.cat(parts[True]).contiguous(),
         biases=torch.cat(parts[False]).contiguous(),
@@ -245,6 +382,9 @@ def pack_trunk_weights(
         num_layers=weights["f1_w"].shape[0],
         output_multiplier=float(weights["output_multiplier"].reshape(-1)[0]),
     )
+    if dtype == torch.bfloat16 and packed.hidden_dim % (8 * KERNEL_CLUSTER) == 0:
+        packed = packed._replace(kernel=kernel_layout(packed))
+    return packed
 
 
 def packed_trunk_weights(
@@ -270,15 +410,53 @@ def packed_trunk_weights(
 
 def sweep_smem_bytes(latent_dim: int, hidden_dim: int, variant: str = "v1",
                      dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared memory of one kernel block, float32 throughout: for TB
-    rows, the latent and score (each padded to a multiple of 4 columns), the
-    residual stream, the normalised input, silu(cond) (H each) and the MLP
-    hidden (4H); v1 also the modulation (2H), which v2 keeps in device
-    scratch. Mirrors ``smem_floats`` in each kernel."""
-    d_pad = -(-latent_dim // 4) * 4
-    latents = 3 if dtype == torch.bfloat16 else 2  # bf16: latent_proj's operand copy
-    per_row = latents * d_pad + (9 if variant == "v1" else 7) * hidden_dim
-    return 4 * ROWS_PER_BLOCK * per_row
+    """Dynamic shared memory of one kernel block.
+
+    float32 kernels, for TB rows: the latent and score (each padded to a
+    multiple of 4 columns), the residual stream, the normalised input,
+    silu(cond) (H each) and the MLP hidden (4H); v1 also the modulation
+    (2H), which v2 keeps in device scratch. Mirrors ``smem_floats`` in each
+    kernel.
+
+    bfloat16 kernels, per CTA of a cluster, either variant: the weight ring,
+    its barriers, the piece table, two buffers of split-K partials, bf16
+    operand copies of the whole latent (padded to 8 x ``KERNEL_CLUSTER``),
+    silu(cond), the adaLN output and the MLP hidden (rows padded by 8),
+    float32 copies of the whole residual stream and of one modulation, and
+    the rank's float32 slice of z. Mirrors ``make_plan`` in
+    csrc/denoise_sweep_bf16.cu."""
+    tb = ROWS_PER_BLOCK
+    if dtype != torch.bfloat16:
+        d_pad = -(-latent_dim // 4) * 4
+        per_row = 2 * d_pad + (9 if variant == "v1" else 7) * hidden_dim
+        return 4 * tb * per_row
+    c = KERNEL_CLUSTER
+    d_pad = _round_up(latent_dim, 8 * c)
+    out1 = _round_up(hidden_dim // 2, 8 * c)
+    return (STAGES * SLOT_BYTES + 64 + 8 * MAX_PIECES + 2 * 4 * tb * (8 * CHUNK_TILES + 8)
+            + 2 * tb * (d_pad + 8) + 2 * 2 * tb * (hidden_dim + 8)
+            + 2 * tb * (max(4 * hidden_dim, out1) + 8)
+            + 4 * tb * (3 * hidden_dim + d_pad // c))
+
+
+def kernel_smem_bytes(latent_dim: int, hidden_dim: int, variant: str, dtype: torch.dtype) -> int:
+    """The shared memory a sweep kernel's block is launched with; raises
+    ValueError for a width its plan cannot take. float32 kernels: hidden_dim
+    a multiple of 8. bfloat16 kernels: hidden_dim a multiple of 8 x
+    ``KERNEL_CLUSTER`` (64), the latent and out_fc1's width padded to that
+    multiple. Both: the plan within ``MAX_SMEM_BYTES``."""
+    name = kernel_name(variant, dtype)
+    step = 8 * KERNEL_CLUSTER if dtype == torch.bfloat16 else 8
+    if hidden_dim % step:
+        cluster = f" (8 columns x its cluster of {KERNEL_CLUSTER} CTAs)" if step > 8 else ""
+        raise ValueError(f"{name} takes hidden_dim a multiple of {step}{cluster}, got {hidden_dim}")
+    smem = sweep_smem_bytes(latent_dim, hidden_dim, variant, dtype)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{name} at latent_dim={latent_dim}, hidden_dim={hidden_dim} needs {smem} bytes "
+            f"of shared memory per block; the kernel's plan allows {MAX_SMEM_BYTES}"
+        )
+    return smem
 
 
 def sweep_v2_scratch_floats(batch: int, hidden_dim: int, num_layers: int) -> int:
@@ -458,6 +636,8 @@ def _check_args(schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_lay
         raise ValueError("packed weights do not match (latent_dim, hidden_dim, num_layers)")
     if not 0 < num_steps <= schedule.num_steps:
         raise ValueError(f"num_steps={num_steps} outside 1..{schedule.num_steps}")
+    if weights.kernel is not None and weights.kernel.weights.device != device:
+        raise ValueError(f"weights.kernel is on {weights.kernel.weights.device}, z0 on {device}")
 
 
 def _sweep(variant, schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers,
@@ -479,14 +659,8 @@ def _sweep(variant, schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num
     _, _, library, function = KERNELS[name]
     b, d = z0.shape
     h = obs_emb.shape[-1]
-    if h % 8:
-        raise ValueError(f"the kernel needs hidden_dim % 8 == 0, got {h}")
-    smem = sweep_smem_bytes(d, h, variant, weights.dtype)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"{name} at latent_dim={d}, hidden_dim={h} needs {smem} bytes of shared "
-            f"memory per block; the kernel's plan allows {MAX_SMEM_BYTES}"
-        )
+    bf16 = weights.dtype == torch.bfloat16
+    smem = kernel_smem_bytes(d, h, variant, weights.dtype)
     for arg, t in (("z0", z0), ("obs_emb", obs_emb), ("t_embs", t_embs)):
         if not t.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
@@ -496,26 +670,67 @@ def _sweep(variant, schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num
     lib = load_library(library)
     coeffs = sweep_coefficients(schedule, num_steps, deterministic).contiguous()
     out = torch.empty_like(z0)
-    offsets_type = _TrunkOffsets if variant == "v1" else _TrunkOffsetsV2
-    offsets = offsets_type(*(weights.offsets[k][0] for k in PACK_ORDER[variant]))
-    scratch = []
-    if variant == "v2":
-        scratch = [torch.empty(sweep_v2_scratch_floats(b, h, num_layers), device=z0.device)]
     with torch.cuda.device(z0.device):
         stream = torch.cuda.current_stream(z0.device).cuda_stream
-        err = getattr(lib, function)(
-            z0.data_ptr(), obs_emb.data_ptr(), t_embs.data_ptr(), coeffs.data_ptr(),
-            weights.weights.data_ptr(), weights.biases.data_ptr(), offsets, seed.data_ptr(),
-            *(s.data_ptr() for s in scratch), out.data_ptr(),
-            b, d, h, num_layers, num_steps, weights.output_multiplier,
-            0 if deterministic else 1, smem, stream,
-        )
+        if bf16:
+            layout = weights.kernel
+            if layout is None or layout.pieces.shape[1] > MAX_PIECES:
+                raise ValueError(f"{name}: the pack has no kernel layout of at most "
+                                 f"{MAX_PIECES} pieces a step")
+            _check_clusters(lib, name, variant, smem, z0.device)
+            err = getattr(lib, function)(
+                z0.data_ptr(), obs_emb.data_ptr(), t_embs.data_ptr(), coeffs.data_ptr(),
+                layout.weights.data_ptr(), layout.pieces.data_ptr(), seed.data_ptr(), out.data_ptr(), b, d, h, num_layers, num_steps,
+                layout.pieces.shape[1], weights.output_multiplier, 0 if deterministic else 1,
+                smem, stream,
+            )
+        else:
+            offsets_type = _TrunkOffsets if variant == "v1" else _TrunkOffsetsV2
+            offsets = offsets_type(*(weights.offsets[k][0] for k in PACK_ORDER[variant]))
+            scratch = []
+            if variant == "v2":
+                scratch = [
+                    torch.empty(sweep_v2_scratch_floats(b, h, num_layers), device=z0.device)
+                ]
+            err = getattr(lib, function)(
+                z0.data_ptr(), obs_emb.data_ptr(), t_embs.data_ptr(), coeffs.data_ptr(),
+                weights.weights.data_ptr(), weights.biases.data_ptr(), offsets, seed.data_ptr(),
+                *(s.data_ptr() for s in scratch), out.data_ptr(),
+                b, d, h, num_layers, num_steps, weights.output_multiplier,
+                0 if deterministic else 1, smem, stream,
+            )
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: {lib.aid_cuda_error_string(err).decode()} ({err})"
         )
     LAUNCHES[name] += 1
     return out
+
+
+# (kernel, shared memory, device) whose cluster the card was found to hold.
+_CLUSTERS_CHECKED: set = set()
+
+
+def _check_clusters(lib, name, variant, smem, device) -> None:
+    """Before the first launch of a shape: raise unless the library was built
+    for ``KERNEL_CLUSTER`` and the card can hold at least one cluster of it
+    with ``smem`` bytes per CTA (cudaOccupancyMaxActiveClusters). Never falls
+    back to another kernel or cluster size."""
+    key = (name, smem, device)
+    if key in _CLUSTERS_CHECKED:
+        return
+    built = lib.aid_sweep_bf16_cluster_size()
+    if built != KERNEL_CLUSTER:
+        raise RuntimeError(f"{name} was built for clusters of {built}, not {KERNEL_CLUSTER}")
+    count = ctypes.c_int(0)
+    err = lib.aid_sweep_bf16_max_clusters(1 if variant == "v1" else 2, smem, ctypes.byref(count))
+    if err != 0 or count.value < 1:
+        raise RuntimeError(
+            f"{name}: the card holds no cluster of {KERNEL_CLUSTER} CTAs with {smem} bytes of "
+            f"shared memory each ({lib.aid_cuda_error_string(err).decode()}, "
+            f"{count.value} clusters)"
+        )
+    _CLUSTERS_CHECKED.add(key)
 
 
 def fused_denoise_sweep(

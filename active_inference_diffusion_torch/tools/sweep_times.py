@@ -1,6 +1,7 @@
 """Time the sweep kernels on the card at the humanoid_state.yaml width.
 
     python -m active_inference_diffusion_torch.tools.sweep_times [--batches 8 256] [--steps 50]
+        [--kernels ...] [--cluster N]
 
 For each kernel and batch it builds the kernels from this checkout, holds
 one deterministic and one stochastic sweep against the plain version
@@ -9,11 +10,25 @@ events (median of ``--calls`` after warm-up). One JSON object per line, on
 standard output and in ``chiprun_out/sweep_times.jsonl``; each names the
 card (``nvidia-smi`` name and power limit). Needs a CUDA device; it is the
 record behind the design steps of the bfloat16 kernels in PERF.md.
+
+``--define NAME=VALUE`` (repeatable) times the bfloat16 kernels built with
+another value of one of their plan constants: a copy of
+``csrc/denoise_sweep_bf16.cu`` with ``constexpr int NAME`` set to VALUE,
+built into its own directory, with the Python mirror of the constant set
+too (CLUSTER lays the pack out for that many ranks). It measures the
+alternatives to the chosen plan (CLUSTER=1: one CTA per 16-row tile;
+CLUSTER=16: a non-portable cluster); the port itself has one.
+``--profile`` adds clock64() counters around the kernel's waits to that
+copy and reports, for thread 0 of the first CTA, the share of its cycles
+spent waiting for weight pieces, at block barriers and at cluster
+barriers.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import re
 import json
 import statistics
 import subprocess
@@ -23,6 +38,7 @@ import torch
 
 from ..core.schedules import make_schedule
 from ..models.score_network import LatentScoreNetwork
+from ..ops import _build, denoise
 from ..ops.denoise import (
     KERNELS,
     denoise_sweep_reference,
@@ -71,6 +87,106 @@ def sweep_args(kernel, batch, steps, latent=64, hidden=256, layers=6, seed=7):
                                t_embs, seed_t, steps, layers)
 
 
+def use_variant(defines: dict, profile: bool) -> None:
+    """Build and lay out the bfloat16 kernels with other values of their
+    plan constants (``defines``: name -> value, e.g. CLUSTER, STAGES,
+    SLOT_BYTES, UNROLL), and with ``profile``, with clock64() counters around
+    the waits (see ``PROFILE_PHASES``); see the module note."""
+    src = _build.SOURCES["denoise_sweep_bf16"].read_text()
+    for name, value in defines.items():
+        match = re.search(rf"constexpr int {name} = (\d+);", src)
+        if not match:
+            raise RuntimeError(f"no constant {name} in denoise_sweep_bf16.cu")
+        src = src.replace(match.group(0), f"constexpr int {name} = {value};")
+        python_name = {"CLUSTER": "KERNEL_CLUSTER"}.get(name, name)
+        if hasattr(denoise, python_name):
+            setattr(denoise, python_name, value)
+    if profile:
+        src = instrument(src)
+    tag = "_".join(f"{k.lower()}{v}" for k, v in defines.items()) + ("_profile" if profile else "")
+    csrc = _build.BUILD_DIR.parent / f"aid_torch_kernels_{tag}"
+    csrc.mkdir(parents=True, exist_ok=True)
+    (csrc / "denoise_sweep_bf16.cu").write_text(src)
+    for header in _build.HEADERS:
+        (csrc / header.name).write_text(header.read_text())
+    _build.CSRC = _build.BUILD_DIR = csrc
+    _build.SOURCES = {"denoise_sweep_bf16": csrc / "denoise_sweep_bf16.cu"}
+    _build.HEADERS = tuple(csrc / h.name for h in _build.HEADERS)
+    _build.load_library.cache_clear()
+
+
+# clock64() cycles of thread 0 of the first CTA: waiting for weight pieces, at block
+# barriers and at cluster barriers; in the whole kernel; in epilogues, in adaLN, and from a
+# piece's arrival to its barrier (the products and the partials); in issuing copies.
+PROFILE_PHASES = ("piece_wait", "block_barrier", "cluster_barrier", "total", "epilogue",
+                  "adaln", "products", "refill")
+
+
+def instrument(src: str) -> str:
+    """The kernel source with clock64() counters (``PROFILE_PHASES``) and a C
+    function that reads and resets them, ``aid_profile_read(unsigned long long out[8])``."""
+    timer = ("{{ const long long _t = clock64(); {stmt} "
+             "if (blockIdx.x == 0 && threadIdx.x == 0) aid_profile[{i}] += clock64() - _t; }}")
+    wait = ("      for (long long spins = 0; !mbar_try_wait(c.bars + 8 * slot, parity);)\n"
+            "        if (++spins > (1ll << 28)) __trap();  // a piece that never lands faults, not hangs")
+    barrier = re.search(r"      __syncthreads\(\);  // every read of this piece's slot is done.*", src)
+    if not barrier:
+        raise RuntimeError("instrument: the piece barrier not found")
+    barrier = barrier.group(0)
+    edits = [
+        (wait, timer.format(stmt=wait.strip().split("//")[0], i=0)
+         + "\n      const long long _tp = clock64();"),
+        (barrier, "      if (blockIdx.x == 0 && threadIdx.x == 0) aid_profile[6] += clock64() - _tp;\n"
+         + timer.format(stmt="__syncthreads();", i=1)),
+        ("cluster.sync();", timer.format(stmt="cluster.sync();", i=2)),
+        ("epilogue<E>(c, r, col, v, bf, ld);", timer.format(stmt="epilogue<E>(c, r, col, v, bf, ld);", i=4)),
+        ("adaln(c);", timer.format(stmt="adaln(c);", i=5)),
+        ("      refill(c);", timer.format(stmt="refill(c);", i=7)),
+        ("  extern __shared__ __align__(128) char smem[];",
+         "  extern __shared__ __align__(128) char smem[];\n  const long long _t_start = clock64();"),
+        ("  for (int i = threadIdx.x; i < TB * DC; i += THREADS) {\n"
+         "    const int r = i / DC, col = c.rank * DC + i % DC, row = c.row0 + r;",
+         "  if (blockIdx.x == 0 && threadIdx.x == 0) aid_profile[3] += clock64() - _t_start;\n"
+         "  for (int i = threadIdx.x; i < TB * DC; i += THREADS) {\n"
+         "    const int r = i / DC, col = c.rank * DC + i % DC, row = c.row0 + r;"),
+        ("namespace {\n", "__device__ unsigned long long aid_profile[8];\n\nnamespace {\n"),
+    ]
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"instrument: anchor not found: {old[:60]!r}")
+        src = src.replace(old, new)
+    return src + (
+        '\nextern "C" int aid_profile_read(unsigned long long* out) {\n'
+        "  cudaError_t err = cudaMemcpyFromSymbol(out, aid_profile, sizeof(aid_profile));\n"
+        "  static const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+        "  if (err == cudaSuccess) err = cudaMemcpyToSymbol(aid_profile, zero, sizeof(zero));\n"
+        "  return (int)err;\n}\n"
+    )
+
+
+def profile_counters(library: str) -> dict:
+    """Read and reset the instrumented library's counters."""
+    out = (ctypes.c_ulonglong * 8)()
+    lib = _build.load_library(library)
+    if lib.aid_profile_read(out) != 0:
+        raise RuntimeError("aid_profile_read failed")
+    return dict(zip(PROFILE_PHASES, out))
+
+
+def graph_ms(fn, calls: int) -> float:
+    """Median milliseconds of ``fn`` captured once into a CUDA graph and
+    replayed (its kernels without the host's launch cost)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return kernel_ms(graph.replay, calls)
+
+
 def kernel_ms(fn, calls: int) -> float:
     for _ in range(3):
         fn()
@@ -92,17 +208,31 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=50)
     parser.add_argument("--calls", type=int, default=10)
     parser.add_argument("--label", default="")
+    parser.add_argument("--define", action="append", default=[],
+                        help="NAME=VALUE: another value of a plan constant of the bf16 kernels")
+    parser.add_argument("--profile", action="store_true")
+    parser.add_argument("--graph", action="store_true",
+                        help="also time the plain version as a CUDA graph (library_ms)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("sweep_times needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    defines = {k: int(v) for k, v in (d.split("=") for d in args.define)}
+    if defines or args.profile:
+        use_variant(defines, args.profile)
     name = card()
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     for kernel in args.kernels:
         for batch in args.batches:
-            wrapper, sweep = sweep_args(kernel, batch, args.steps)
+            try:
+                wrapper, sweep = sweep_args(kernel, batch, args.steps)
+                denoise.kernel_smem_bytes(64, 256, KERNELS[kernel][0], KERNELS[kernel][1])
+            except ValueError as exc:  # a cluster size whose plan does not fit
+                print(json.dumps(dict(label=args.label, kernel=kernel, batch=batch,
+                                      defines=defines, refused=str(exc))), flush=True)
+                continue
             rtol, atol = TOL[sweep[1].dtype]
             worst, err = 0.0, 0.0
             for deterministic in (True, False):
@@ -115,7 +245,27 @@ def main() -> int:
                 worst = max(worst, float((diff / (atol + rtol * want.abs())).max()))
             ms = kernel_ms(lambda: wrapper(*sweep, deterministic=False), args.calls)
             row = dict(label=args.label, kernel=kernel, batch=batch, steps=args.steps,
-                       ms=ms, max_abs_err=err, err_over_tol=worst, card=name)
+                       defines=defines, ms=ms, max_abs_err=err,
+                       err_over_tol=worst, card=name)
+            variant, dtype, library, _ = KERNELS[kernel]
+            if args.profile:
+                profile_counters(library)  # reset
+                wrapper(*sweep, deterministic=False)
+                torch.cuda.synchronize()
+                counts = profile_counters(library)
+                row["cycles"] = counts["total"]
+                row["share"] = {k: counts[k] / counts["total"] for k in PROFILE_PHASES
+                                if k != "total"}
+            if dtype == torch.bfloat16:  # clusters the card holds at once at this plan
+                count = ctypes.c_int(0)
+                smem = denoise.kernel_smem_bytes(64, 256, variant, dtype)
+                _build.load_library(library).aid_sweep_bf16_max_clusters(
+                    1 if variant == "v1" else 2, smem, ctypes.byref(count))
+                row["max_active_clusters"] = count.value
+            if args.graph:
+                row["library_ms"] = graph_ms(
+                    lambda: denoise_sweep_reference(*sweep, deterministic=False), args.calls
+                )
             print(json.dumps(row), flush=True)
             with open(out / "sweep_times.jsonl", "a") as f:
                 f.write(json.dumps(row) + "\n")

@@ -18,9 +18,10 @@ Phases:
    normal / sqrt(fan_in), output_multiplier 1.0), each deterministic and
    stochastic with the same seed: v1-f32 at the flagship, the
    halfcheetah_state.yaml widths (full and partial sweep) and a ragged
-   batch; v1-bf16 at the humanoid_state.yaml width (K=50 full, 25 partial)
-   and a ragged batch; v2-f32 at the flagship and humanoid widths; v2-bf16
-   at the humanoid width.
+   batch; v1-bf16 and v2-bf16 at the humanoid_state.yaml width at B=256
+   (K=50 full; v1 also 25 partial), B=8 (one cluster), B=37 (a ragged
+   cluster) and B=512, K=10 (two waves of clusters; the K of
+   humanoid3d_fused.yaml); v2-f32 at the flagship and humanoid widths.
 4. main paths, each with every launch count set to 0 just before it and
    read just after; actions finite, (B, A), within [-1, 1]; exactly one
    launch per call of the path's kernel and none of another; eval actions
@@ -34,9 +35,13 @@ Phases:
       ``act_warm`` calls at each batch with a ``reset_mask``;
    d. the same with ``denoiser_kernel="v2"``, v2-bf16.
 5. times: each kernel against its plain version at its main path's shape
-   (CUDA events), v1-f32 also at the humanoid width; ``act`` latency
-   (host clock, synchronised) at the flagship (batch 1, 256) and the
-   humanoid config (batch 8, 256; eval and collect).
+   (CUDA events), v1-f32 also at the humanoid width, the bf16 kernels also
+   at B=8; for each kernel's first row the plain version captured once in
+   a CUDA graph and replayed (``library_ms``: cuBLAS products and PyTorch's
+   elementwise kernels without the host's launch cost, TF32 off; measured
+   here only, the port never calls it); ``act`` latency (host clock,
+   synchronised) at the flagship (batch 1, 256) and the humanoid config
+   (batch 8, 256; eval and collect).
 6. the kernel summary line, the card line, and the result line.
 """
 
@@ -67,9 +72,15 @@ PARITY_SHAPES = [
     ("denoise_sweep_v1_bf16", "humanoid_state", 256, 64, 256, 6, 50, 50),
     ("denoise_sweep_v1_bf16", "humanoid_state_collect", 256, 64, 256, 6, 50, 25),
     ("denoise_sweep_v1_bf16", "humanoid_ragged", 37, 64, 256, 6, 50, 50),
+    ("denoise_sweep_v1_bf16", "humanoid_b8", 8, 64, 256, 6, 50, 50),
+    # two waves of 16-row clusters; K of examples/configs/humanoid3d_fused.yaml
+    ("denoise_sweep_v1_bf16", "humanoid_b512", 512, 64, 256, 6, 50, 10),
     ("denoise_sweep_v2_f32", "flagship", 256, 32, 128, 6, 25, 25),
     ("denoise_sweep_v2_f32", "humanoid_state", 256, 64, 256, 6, 50, 50),
     ("denoise_sweep_v2_bf16", "humanoid_state", 256, 64, 256, 6, 50, 50),
+    ("denoise_sweep_v2_bf16", "humanoid_ragged", 37, 64, 256, 6, 50, 50),
+    ("denoise_sweep_v2_bf16", "humanoid_b8", 8, 64, 256, 6, 50, 50),
+    ("denoise_sweep_v2_bf16", "humanoid_b512", 512, 64, 256, 6, 50, 10),
 ]
 # Kernel vs plain sweep, elementwise |kernel - plain| <= atol + rtol |plain|.
 # float32: another summation order, compounded over up to 100 dependent
@@ -169,6 +180,7 @@ def main() -> int:
         fused_denoise_sweep_v2,
         packed_trunk_weights,
     )
+    from active_inference_diffusion_torch.tools.sweep_times import graph_ms
 
     dev = torch.device("cuda")
     card = nvidia_smi()
@@ -349,6 +361,8 @@ def main() -> int:
         ("denoise_sweep_v2_f32", "humanoid_state", hum),
         ("denoise_sweep_v2_bf16", "humanoid_state", hum),
         ("denoise_sweep_v1_f32", "humanoid_state", hum),
+        ("denoise_sweep_v1_bf16", "humanoid_state_b8", dict(hum, batch=8)),
+        ("denoise_sweep_v2_bf16", "humanoid_state_b8", dict(hum, batch=8)),
     ]
     summary = {}
     for kernel, label, shape in timed:
@@ -364,6 +378,10 @@ def main() -> int:
         for name in ("plain", "kernel", "kernel", "plain"):
             samples[name] += cuda_ms(arms[name], (calls + 1) // 2)
         ms = {name: statistics.median(v) for name, v in samples.items()}
+        first = kernel not in summary
+        if first:  # the yardstick: the plain version as one CUDA graph
+            ms["library"] = graph_ms(lambda: denoise_sweep_reference(*args, deterministic=False),
+                                     calls)
         packed, z0, obs_emb, t_embs = args[1], args[2], args[3], args[4]
         b, k = z0.shape[0], args[6]
         weights = sum(
@@ -376,13 +394,15 @@ def main() -> int:
         bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
                  "operations": flops / PEAK_FLOPS[packed.dtype] * 1e3}
         bound_by = max(bound, key=bound.get)
+        graph = f", plain as a CUDA graph {ms['library']:.4f} ms" if first else ""
         log(f"[5 times] {kernel} {label} B={b} K={k}: kernel median {ms['kernel']:.4f} ms, "
-            f"plain {ms['plain']:.4f} ms over {len(samples['kernel'])} calls each (stochastic); "
-            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB, bound {bound[bound_by]:.4f} ms "
-            f"({bound_by}) | {card}")
-        if kernel not in summary:
+            f"plain {ms['plain']:.4f} ms over {len(samples['kernel'])} calls each (stochastic)"
+            f"{graph}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB, bound "
+            f"{bound[bound_by]:.4f} ms ({bound_by}) | {card}")
+        if first:
             summary[kernel] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
-                                   bound_ms=bound[bound_by], bound_by=bound_by)
+                                   bound_ms=bound[bound_by], bound_by=bound_by,
+                                   library_ms=ms["library"])
 
     obs_flag = np.random.default_rng(0).standard_normal((256, FLAGSHIP_OBS)).astype(np.float32)
     obs_hum = np.random.default_rng(1).standard_normal((256, HUMANOID_OBS_DIM)).astype(np.float32)
@@ -408,13 +428,11 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": "active_inference_diffusion_torch/csrc/"
-                  + ("denoise_sweep.cu" if KERNELS[name][0] == "v1" else "denoise_sweep_v2.cu"),
+        "source": f"active_inference_diffusion_torch/csrc/{KERNELS[name][2]}.cu",
         "replaces": REPLACES[name],
         "launches": launches[name],
         "max_abs_err": max_abs_err[name],
         **summary[name],
-        "library_ms": None,  # no single PyTorch call computes the K-step sweep
     } for name in KERNELS]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

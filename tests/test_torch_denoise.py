@@ -30,16 +30,25 @@ from active_inference_diffusion_tpu.ops.denoise import (
     fused_denoise_sweep_v2 as jax_fused_denoise_sweep_v2,
 )
 from active_inference_diffusion_torch.bridge import load_jax_params
+from active_inference_diffusion_torch.models.score_network import LatentScoreNetwork
 from active_inference_diffusion_torch.ops.denoise import (
+    CHUNK_TILES,
+    KERNEL_CLUSTER,
     LAUNCHES,
+    MAX_PIECES,
     MAX_SMEM_BYTES,
+    SLOT_BYTES,
+    STAGES,
     denoise_sweep_reference,
     extract_trunk_weights,
     fused_denoise_sweep,
     fused_denoise_sweep_v2,
+    kernel_products,
+    kernel_smem_bytes,
     packed_trunk_weights,
     philox4x32,
     philox_normal,
+    rank_columns,
     sweep_smem_bytes,
     sweep_v2_scratch_floats,
 )
@@ -319,3 +328,145 @@ def test_shared_memory_plan():
     # humanoid width, B=256: 16 blocks x 16 rows x (6*4*256 + 2*256) floats = 6.8 MB
     assert 4 * sweep_v2_scratch_floats(256, 256, 6) == 6_815_744
     assert sweep_v2_scratch_floats(37, 128, 6) == 48 * (6 * 4 + 2) * 128
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 kernels' weight layout and shared-memory plan (no JAX)
+# ---------------------------------------------------------------------------
+
+# (latent, hidden, layers): a small width the bf16 kernels take (latent padded
+# from 50 to 64) and the humanoid_state.yaml width.
+LAYOUT_WIDTHS = {"small": (50, 64, 2), "humanoid": (64, 256, 6)}
+
+
+def bf16_pack(variant, latent, hidden, layers):
+    net = LatentScoreNetwork(latent, OBS_DIM, hidden_dim=hidden, num_layers=layers)
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(hidden + layers)
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen))
+    return packed_trunk_weights(net, variant, torch.bfloat16)
+
+
+def unpack_kernel_layout(packed):
+    """Plain inverse of the kernel order: per product, the (in, out) matrix
+    padded with zeros as the kernels see it, written element by element from
+    the piece table and the B-fragment rule W[16 ks + 2 t + {0, 1, 8, 9}, 8
+    nt + g] = fragment[nt][ks][lane = 4 g + t][0..3], and per product and
+    rank the biases of the rank's columns, from the head of each chunk's
+    first piece."""
+    layout = packed.kernel
+    words = layout.weights.view(torch.int16)
+    table = layout.pieces.tolist()
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    k_of = torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], dim=1)  # (lane, 4)
+    n_of = g[:, None].expand(32, 4)
+    mats, biases, index = [], [], 0
+    for w, _, modulation in kernel_products(packed):
+        kp = -(-w.shape[0] // 64) * 64
+        out = torch.zeros(kp, max(w.shape[1], -(-w.shape[1] // 64) * 64), dtype=torch.int16)
+        rank_biases = []
+        for r in range(KERNEL_CLUSTER):
+            cols = rank_columns(w.shape[1], modulation, r)
+            k_steps, n_tiles, piece = kp // 16, len(cols) // 8, index
+            bias = []
+            for n0 in range(0, n_tiles, CHUNK_TILES):
+                ntc = min(CHUNK_TILES, n_tiles - n0)
+                kb = 0
+                while kb < k_steps:
+                    off, nbytes = table[r][piece]
+                    data = words[off * 8 : off * 8 + nbytes // 2]
+                    if kb == 0:  # the chunk's biases, then its fragments
+                        bias.append(data[: 16 * ntc].clone().view(torch.float32))
+                        data = data[16 * ntc :]
+                    ksp = data.numel() // (ntc * 128)
+                    frags = data.view(ntc, ksp, 32, 4)
+                    nt = torch.arange(ntc)[:, None, None, None]
+                    kk = torch.arange(ksp)[None, :, None, None]
+                    out[16 * (kb + kk) + k_of, cols[8 * (n0 + nt) + n_of]] = frags
+                    kb += ksp
+                    piece += 1
+            rank_biases.append(torch.cat(bias))
+        index = piece
+        mats.append(out.view(torch.bfloat16))
+        biases.append(rank_biases)
+    assert index == len(table[0])
+    return mats, biases
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+@pytest.mark.parametrize("width", sorted(LAYOUT_WIDTHS))
+def test_kernel_layout_unpacks_to_the_views(variant, width):
+    """The bf16 kernels' weight buffer holds exactly the (in, out) views,
+    bit for bit, and zeros where the kernels pad; each rank's bias heads hold
+    the bias views of its columns, zeros where padded."""
+    packed = bf16_pack(variant, *LAYOUT_WIDTHS[width])
+    layout = packed.kernel
+    assert layout.weights.dtype == torch.bfloat16
+    assert layout.pieces.shape[0] == KERNEL_CLUSTER and layout.pieces.shape[1] <= MAX_PIECES
+    offsets, sizes = layout.pieces[..., 0].long() * 16, layout.pieces[..., 1].long()
+    assert bool((sizes % 16 == 0).all()) and int(sizes.max()) <= SLOT_BYTES
+    assert int((offsets + sizes).max()) == 2 * layout.weights.numel()
+    mats, biases = unpack_kernel_layout(packed)
+    for (w, b, modulation), got, rank_biases in zip(kernel_products(packed), mats, biases):
+        k, n = w.shape
+        assert torch.equal(got[:k, :n].view(torch.int16), w.contiguous().view(torch.int16))
+        assert not got[k:].float().any() and not got[:, n:].float().any()
+        for r in range(KERNEL_CLUSTER):
+            cols = rank_columns(n, modulation, r)
+            want = torch.zeros(len(cols))
+            real = cols < n
+            if b is not None:
+                want[real] = b[cols[real]]
+            assert torch.equal(rank_biases[r], want)
+
+
+@pytest.mark.parametrize("width", sorted(LAYOUT_WIDTHS))
+def test_every_output_column_has_one_rank(width):
+    """Each product's columns (padded to 8 x KERNEL_CLUSTER) are split over
+    the ranks without overlap or gap; a rank's slice is whole n-tiles, and a
+    modulation's rank owns the scale and the shift of the same h-columns."""
+    latent, hidden, _ = LAYOUT_WIDTHS[width]
+    for out, modulation in ((latent, False), (hidden, False), (4 * hidden, False),
+                            (hidden // 2, False), (2 * hidden, True)):
+        owners = torch.cat([rank_columns(out, modulation, r) for r in range(KERNEL_CLUSTER)])
+        padded = -(-out // 64) * 64
+        assert torch.equal(owners.sort().values, torch.arange(padded))
+        for r in range(KERNEL_CLUSTER):
+            cols = rank_columns(out, modulation, r)
+            assert len(cols) % 8 == 0 and len(cols) == padded // KERNEL_CLUSTER
+            if modulation:
+                half = len(cols) // 2
+                assert torch.equal(cols[half:], cols[:half] + hidden)
+
+
+def test_bf16_shared_memory_plan():
+    """At latent 64, hidden 256 (all three bf16 presets) the ring of
+    STAGES x SLOT_BYTES with the activations fits a CTA's 232,448 B, the same
+    for v1 and v2 (each holds one modulation at a time); hidden 512 does not
+    fit; widths that are not a multiple of 64 are refused, as the float32
+    kernels refuse theirs."""
+    ring = STAGES * SLOT_BYTES
+    v1 = kernel_smem_bytes(64, 256, "v1", torch.bfloat16)
+    assert ring < v1 == kernel_smem_bytes(64, 256, "v2", torch.bfloat16) <= MAX_SMEM_BYTES
+    # operands: latent (64 + 8), silu(cond) and x (256 + 8), MLP hidden (1024 + 8), in
+    # bf16; whole h (256) and modulation (512) and the rank's z slice (64 / 8) in float32
+    activations = 16 * (2 * (72 + 2 * 264 + 1032) + 4 * (256 + 512 + 64 // KERNEL_CLUSTER))
+    assert v1 == ring + 64 + 8 * MAX_PIECES + 2 * 4 * 16 * (8 * CHUNK_TILES + 8) + activations
+    assert v1 == sweep_smem_bytes(64, 256, "v1", torch.bfloat16) == 223_296
+    assert kernel_smem_bytes(50, 64, "v2", torch.bfloat16) <= MAX_SMEM_BYTES
+    assert kernel_smem_bytes(64, 256, "v1", torch.float32) == sweep_smem_bytes(64, 256)
+    for variant in ("v1", "v2"):
+        with pytest.raises(ValueError, match="shared memory"):
+            kernel_smem_bytes(64, 512, variant, torch.bfloat16)
+        with pytest.raises(ValueError, match="multiple of 64"):
+            kernel_smem_bytes(8, 32, variant, torch.bfloat16)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            kernel_smem_bytes(8, 36, variant, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel_smem_bytes(128, 512, "v1", torch.float32)
+    # a bf16 pack at a width the kernels do not take carries no kernel layout
+    assert packed_trunk_weights(
+        LatentScoreNetwork(8, OBS_DIM, hidden_dim=32, num_layers=1), "v1", torch.bfloat16
+    ).kernel is None

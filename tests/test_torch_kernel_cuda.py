@@ -8,9 +8,11 @@ one. The file imports no JAX, so it runs on a machine without it:
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.) Tolerances:
 with float32 weights the kernel and the plain version differ only in
 summation order, rtol 1e-4 / atol 1e-5 at these small widths. With
-bfloat16 weights a one-ulp float32 difference can flip a bfloat16 rounding
-of an activation, and the flip carries through the later steps: rtol 1e-2
-/ atol 5e-3.
+bfloat16 weights a one-ulp float32 difference (the tensor cores sum in
+another order) can flip a bfloat16 rounding of an activation, and the flip
+carries through the later steps: rtol 1e-2 / atol 5e-3. The bfloat16
+kernels take hidden widths that are a multiple of 64, so their small shapes
+use hidden 64.
 """
 
 import numpy as np
@@ -27,6 +29,7 @@ from active_inference_diffusion_torch.configs.config import BeliefDynamicsConfig
 from active_inference_diffusion_torch.core.schedules import make_schedule
 from active_inference_diffusion_torch.models.score_network import LatentScoreNetwork
 from active_inference_diffusion_torch.ops.denoise import (
+    KERNEL_CLUSTER,
     LAUNCHES,
     denoise_sweep_reference,
     fused_denoise_sweep,
@@ -94,7 +97,7 @@ def test_kernel_matches_plain_version(cuda, shape, deterministic):
     [("v1", torch.bfloat16), ("v2", torch.float32), ("v2", torch.bfloat16)],
     ids=["v1-bf16", "v2-f32", "v2-bf16"],
 )
-@pytest.mark.parametrize("shape", [(8, 8, 32, 2), (37, 50, 64, 2)], ids=["tiny", "ragged"])
+@pytest.mark.parametrize("shape", [(8, 8, 64, 2), (37, 50, 64, 2)], ids=["tiny", "ragged"])
 @pytest.mark.parametrize("deterministic", [True, False], ids=["det", "sto"])
 def test_kernel_variants_match_plain_version(cuda, variant, dtype, shape, deterministic):
     args = sweep_args(cuda, *shape, steps=5, variant=variant, dtype=dtype)
@@ -120,7 +123,7 @@ def test_v2_kernel_matches_v1_kernel(cuda):
 @pytest.mark.parametrize("kernel", ["v1", "v2"])
 def test_agent_act_launches_the_kernel_once_per_call(cuda, kernel):
     cfg = ActiveInferenceConfig(
-        observation_dim=OBS_DIM, action_dim=2, latent_dim=8, hidden_dim=32,
+        observation_dim=OBS_DIM, action_dim=2, latent_dim=8, hidden_dim=64,
         score_num_layers=2, diffusion=DiffusionConfig(num_diffusion_steps=5),
         belief_dynamics=BeliefDynamicsConfig(use_belief_dynamics=True),
     )
@@ -161,3 +164,67 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fused_denoise_sweep(*cpu_seed, deterministic=True)
     with pytest.raises(ValueError, match="packed for v1"):
         fused_denoise_sweep_v2(*args, deterministic=True)
+
+
+# The humanoid_state.yaml width (latent 64, hidden 256, 6 blocks) at a few
+# steps: one cluster (B=1, 8), a ragged cluster (37), one wave of 16
+# clusters on 132 SMs (256) and two waves (512).
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+@pytest.mark.parametrize("batch", [1, 8, 37, 256, 512])
+@pytest.mark.parametrize("deterministic", [True, False], ids=["det", "sto"])
+def test_bf16_kernels_at_the_humanoid_width(cuda, variant, batch, deterministic):
+    """5 steps on the preset's 50-step cosine schedule, output_multiplier 1, as
+    chip_smoke.py drives this width."""
+    args = list(sweep_args(cuda, batch, 64, 256, 6, steps=5, seed=batch, variant=variant,
+                           dtype=torch.bfloat16))
+    args[0] = make_schedule(50, "cosine", device=cuda)
+    args[1] = args[1]._replace(output_multiplier=1.0)
+    name = kernel_name(variant, torch.bfloat16)
+    before = dict(LAUNCHES)
+    got = WRAPPERS[variant](*args, deterministic=deterministic)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**before, name: before[name] + 1}
+    want = denoise_sweep_reference(*args, deterministic=deterministic)
+    # chip_smoke.py's bf16 sweep tolerance: at this width |z| reaches ~50, and a
+    # flipped bf16 rounding moves a value by its own 2**-8 relative step.
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=3e-2, atol=3e-2)
+
+
+def test_v2_bf16_kernel_matches_v1_bf16_kernel(cuda):
+    """The same seed draws the same noise in both bf16 kernels; they round at
+    different sites (v1 rounds v_proj's output, v2 the composed Wv @ Wo), so
+    they agree to the JAX package's bf16-vs-f32 tolerance."""
+    v1 = fused_denoise_sweep(
+        *sweep_args(cuda, 37, 50, 64, 2, steps=5, dtype=torch.bfloat16), deterministic=False
+    )
+    v2 = fused_denoise_sweep_v2(
+        *sweep_args(cuda, 37, 50, 64, 2, steps=5, variant="v2", dtype=torch.bfloat16),
+        deterministic=False,
+    )
+    np.testing.assert_allclose(v2.cpu().numpy(), v1.cpu().numpy(), rtol=0.1, atol=0.05)
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+def test_bf16_pack_rebuilt_after_an_in_place_update(cuda, variant):
+    """An in-place update of the weights rebuilds the pack and its kernel
+    layout; the kernel then computes with the new weights."""
+    net = LatentScoreNetwork(8, OBS_DIM, hidden_dim=64, num_layers=2).to(cuda)
+    randomize(net, 3)
+    args = list(sweep_args(cuda, 8, 8, 64, 2, steps=5, variant=variant, dtype=torch.bfloat16))
+    args[1] = packed = packed_trunk_weights(net, variant, torch.bfloat16)
+    before = WRAPPERS[variant](*args, deterministic=True)
+    with torch.no_grad():
+        net.blocks[0].mlp_fc1.weight.mul_(-1.0)
+    args[1] = repacked = packed_trunk_weights(net, variant, torch.bfloat16)
+    assert repacked is not packed and not torch.equal(repacked.kernel.weights, packed.kernel.weights)
+    after = WRAPPERS[variant](*args, deterministic=True)
+    want = denoise_sweep_reference(*args, deterministic=True)
+    np.testing.assert_allclose(after.cpu().numpy(), want.cpu().numpy(), **TOL[torch.bfloat16])
+    assert not torch.allclose(after, before)
+
+
+def test_bf16_kernels_raise_on_an_unsupported_width(cuda):
+    for variant in ("v1", "v2"):
+        args = sweep_args(cuda, 8, 8, 32, 2, steps=5, variant=variant, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=f"multiple of {8 * KERNEL_CLUSTER}"):
+            WRAPPERS[variant](*args, deterministic=True)

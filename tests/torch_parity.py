@@ -38,6 +38,10 @@ from active_inference_diffusion_torch.core.active_inference import (
     DiffusionActiveInference as TorchCore,
 )
 
+# The tier-1 run puts several test workers on one host, each beside XLA's own
+# thread pool; at these sizes two intra-op threads lose nothing.
+torch.set_num_threads(2)
+
 B, D, H, K, L = 8, 8, 32, 5, 2
 OBS_DIM, ACT_DIM = 5, 2
 CPU = torch.device("cpu")
