@@ -9,8 +9,8 @@
 // silu(cond), each adaLN output, v_proj's output in v1, the gelu MLP hidden and the silu
 // out_fc1 output) is rounded to bfloat16 once, where it is written; products are bf16 x
 // bf16 summed in float32; biases, LayerNorm (eps 1e-6, no affine), silu(cond), the +-10
-// clip x output_multiplier and the p_sample update stay float32. The noise is PR 1's
-// Philox4x32-10, keyed by (seed, global row) and counted by (step, latent column).
+// clip x output_multiplier and the p_sample update stay float32. The noise is the float32
+// kernels' Philox4x32-10, keyed by (seed, global row) and counted by (step, latent column).
 //
 // What bounds it on the card. 2 x 5,693,440 (v1) / 5,300,224 (v2) weights x B x K
 // operations at the humanoid_state.yaml width (latent 64, hidden 256, L 6): 146 / 136
@@ -24,27 +24,31 @@
 //   batch rows are exactly one M tile. Not wgmma: it needs 64-row tiles, which would cut
 //   the tiles at B 256 from 16 to 4 and leave 3/4 of each product's rows empty at B <= 48.
 //   A fragments come from the bfloat16 operand copies in shared memory by ldmatrix; B
-//   fragments from the pack's kernel-order buffer (PackedTrunk.kernel_weights), laid out
-//   per product, per cluster rank, per chunk of <= 16 n-tiles and per piece of k-steps in
+//   fragments from the pack's kernel-order buffer (PackedTrunk.kernel), laid out per
+//   product, per cluster rank, per chunk of <= 16 n-tiles and per piece of k-steps in
 //   fragment order (lane-contiguous 8 bytes), so a warp's B load is 256 contiguous bytes.
+//   Each k-step's mma sums from zero and the k-steps are added in float32 (mma_bf16).
 // - A cluster of CLUSTER CTAs runs each 16-row tile. Rank j computes columns
-//   [j N/C, (j+1) N/C) of every product, so it streams only 1/C of the weights. Outputs
-//   that are the next product's operand (the bf16 copies) are written into every peer's
-//   shared memory (DSMEM) and published by a cluster barrier. The residual stream h, the
-//   latent z and the modulations stay distributed: rank j keeps h- and z-columns of its
-//   slice in float32. adaLN exchanges each rank's per-row (mean, M2) over its h-columns
-//   (16 rows x 2 floats) through DSMEM, combines them exactly (Chan et al.), normalises its
-//   slice and broadcasts its slice of x. So each rank computes the modulation only for its
-//   own columns (scale and shift halves), and v2's 2L+1 modulation sites fit in shared
-//   memory (16 x 6,656 / 8 floats = 53 KB at hidden 256): this kernel needs no device
-//   scratch. The float32 v2 kernel (denoise_sweep_v2.cu) still uses one.
-// - Each product's weight slice is staged into shared memory ahead of use with the 1-D
-//   bulk copy (cp.async.bulk ... mbarrier::complete_tx::bytes) into a ring of STAGES slots
-//   of SLOT_BYTES; one thread refills a slot after the block barrier that frees it, so the
-//   next pieces load while a product's epilogue, broadcast and cluster barrier run. The
-//   pack's piece table lists each piece's offset and size for each rank.
+//   [j N/C, (j+1) N/C) of every product, so it streams only 1/C of the weights, and writes
+//   them into every CTA's shared memory (DSMEM): the next product's bf16 operand, or the
+//   float32 residual stream h and modulation (scale | shift of its h-columns), of which
+//   every CTA keeps a whole copy. After a cluster barrier every CTA computes the whole
+//   adaLN output itself (LayerNorm over the full row, two passes), so an adaLN costs no
+//   exchange of its own: 4L + 3 cluster barriers a step. v2 computes its 2L+1 modulation
+//   sites one at a time, where v1 computes mod1, mod2 and mod_final, so this kernel needs
+//   no device scratch (the float32 v2 kernel, denoise_sweep_v2.cu, still uses one).
+// - Each chunk's weight slice (its float32 biases at the head of its first piece) is
+//   staged into shared memory ahead of use with the 1-D bulk copy (cp.async.bulk ...
+//   mbarrier::complete_tx::bytes) into a ring of STAGES slots of SLOT_BYTES; one thread
+//   refills a slot after the block barrier that frees it, so the next pieces load while a
+//   product's epilogue and the cluster barrier run. The pack's piece table lists each
+//   piece's offset and size for each rank.
 // - Every rank takes a final cluster barrier before it exits, since a peer may still write
 //   into its shared memory.
+// On the H100 a cluster of 8 CTAs with this plan fits 15 times at once
+// (cudaOccupancyMaxActiveClusters), so B 256 (16 tiles) runs in two waves. Per tile the
+// time goes to each product's fixed chain (piece, products, split-K sum, DSMEM epilogue,
+// barrier), not to the weight stream: clusters of 4 or 16 take about as long per tile.
 //
 // Widths: hidden % (8 x CLUSTER) == 0; the latent and out_fc1's width are padded to a
 // multiple of 8 x CLUSTER with zero weights. ops/denoise.py mirrors the shared-memory plan

@@ -2,13 +2,12 @@
 
     python -m active_inference_diffusion_torch.tools.profile_act [--batch 256] [--calls 5]
 
-Builds the humanoid_state.yaml agent (random weights from a seed, as
-``chip_smoke.py``), warms it up, then runs ``--calls`` eval ``act`` calls
+Builds the humanoid_state.yaml agent (its v1 bf16 sweep; random weights
+from a seed, as ``chip_smoke.py``), warms it up, then runs ``--calls`` eval ``act`` calls
 under ``torch.profiler`` (CPU and CUDA activities). Prints, as JSON lines:
 the host time per call, the device time per call summed over kernels, the
 share of the call's span the device was busy, and the kernels that took the
-most device time. Also written to ``chiprun_out/profile_act.jsonl``. Needs
-a CUDA device.
+most device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -16,7 +15,6 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -30,7 +28,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--calls", type=int, default=5)
-    parser.add_argument("--kernel", default="v1", choices=("v1", "v2"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_act needs a CUDA device")
@@ -39,7 +36,6 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     cfg, training = humanoid_state()
-    cfg.tpu.denoiser_kernel = args.kernel
     agent = DiffusionStateAgent(HUMANOID_OBS_DIM, HUMANOID_ACT_DIM, cfg, training)
     gen = torch.Generator().manual_seed(200)
     with torch.no_grad():
@@ -67,17 +63,13 @@ def main() -> int:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / args.calls
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     rows = [
-        dict(what="act", batch=args.batch, kernel=args.kernel, host_ms_per_call=host_ms,
+        dict(what="act", batch=args.batch, host_ms_per_call=host_ms,
              device_ms_per_call=device_ms, device_busy_share=device_ms / host_ms,
              kernels_per_call=len(kernels) / args.calls, card=card()),
         *(dict(what="top_kernel", name=name[:80], device_ms_per_call=ms) for name, ms in top),
     ]
-    out = Path("chiprun_out")
-    out.mkdir(exist_ok=True)
-    with open(out / "profile_act.jsonl", "a") as f:
-        for row in rows:
-            print(json.dumps(row), flush=True)
-            f.write(json.dumps(row) + "\n")
+    for row in rows:
+        print(json.dumps(row), flush=True)
     return 0
 
 

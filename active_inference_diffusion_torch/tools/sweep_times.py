@@ -6,9 +6,8 @@
 For each kernel and batch it builds the kernels from this checkout, holds
 one deterministic and one stochastic sweep against the plain version
 (``chip_smoke.py``'s tolerances), then times stochastic sweeps with CUDA
-events (median of ``--calls`` after warm-up). One JSON object per line, on
-standard output and in ``chiprun_out/sweep_times.jsonl``; each names the
-card (``nvidia-smi`` name and power limit). Needs a CUDA device; it is the
+events (median of ``--calls`` after warm-up). One JSON object per line on
+standard output; each names the card (``nvidia-smi`` name and power limit). Needs a CUDA device; it is the
 record behind the design steps of the bfloat16 kernels in PERF.md.
 
 ``--define NAME=VALUE`` (repeatable) times the bfloat16 kernels built with
@@ -32,7 +31,6 @@ import re
 import json
 import statistics
 import subprocess
-from pathlib import Path
 
 import torch
 
@@ -211,8 +209,6 @@ def main() -> int:
     parser.add_argument("--define", action="append", default=[],
                         help="NAME=VALUE: another value of a plan constant of the bf16 kernels")
     parser.add_argument("--profile", action="store_true")
-    parser.add_argument("--graph", action="store_true",
-                        help="also time the plain version as a CUDA graph (library_ms)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("sweep_times needs a CUDA device")
@@ -222,8 +218,6 @@ def main() -> int:
     if defines or args.profile:
         use_variant(defines, args.profile)
     name = card()
-    out = Path("chiprun_out")
-    out.mkdir(exist_ok=True)
     for kernel in args.kernels:
         for batch in args.batches:
             try:
@@ -262,13 +256,7 @@ def main() -> int:
                 _build.load_library(library).aid_sweep_bf16_max_clusters(
                     1 if variant == "v1" else 2, smem, ctypes.byref(count))
                 row["max_active_clusters"] = count.value
-            if args.graph:
-                row["library_ms"] = graph_ms(
-                    lambda: denoise_sweep_reference(*sweep, deterministic=False), args.calls
-                )
             print(json.dumps(row), flush=True)
-            with open(out / "sweep_times.jsonl", "a") as f:
-                f.write(json.dumps(row) + "\n")
             if worst > 1.0:
                 raise RuntimeError(f"{kernel} B={batch}: kernel disagrees with its plain version")
     return 0
