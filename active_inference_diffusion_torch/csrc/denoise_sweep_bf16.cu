@@ -30,13 +30,15 @@
 //   Each k-step's mma sums from zero and the k-steps are added in float32 (mma_bf16).
 // - A cluster of CLUSTER CTAs runs each 16-row tile. Rank j computes columns
 //   [j N/C, (j+1) N/C) of every product, so it streams only 1/C of the weights, and writes
-//   them into every CTA's shared memory (DSMEM): the next product's bf16 operand, or the
-//   float32 residual stream h and modulation (scale | shift of its h-columns), of which
-//   every CTA keeps a whole copy. After a cluster barrier every CTA computes the whole
-//   adaLN output itself (LayerNorm over the full row, two passes), so an adaLN costs no
-//   exchange of its own: 4L + 3 cluster barriers a step. v2 computes its 2L+1 modulation
-//   sites one at a time, where v1 computes mod1, mod2 and mod_final, so this kernel needs
-//   no device scratch (the float32 v2 kernel, denoise_sweep_v2.cu, still uses one).
+//   the next product's bf16 operand into every CTA's shared memory (DSMEM). The float32
+//   residual stream h and the modulation stay distributed: rank j keeps only its
+//   h-columns [j H/C, (j+1) H/C) and the scale and shift of those columns, which it
+//   computes itself. An adaLN exchanges each rank's row sums and squared deviations (16
+//   rows x 2 floats), and after a cluster barrier every rank normalises its own columns
+//   and writes them, rounded to bf16, into every CTA: two cluster barriers an adaLN, 6L +
+//   4 a step in v1 and 5L + 4 in v2. v2 computes its 2L+1 modulation sites one at a time,
+//   where v1 computes mod1, mod2 and mod_final, so this kernel needs no device scratch
+//   (the float32 v2 kernel, denoise_sweep_v2.cu, still uses one).
 // - Each chunk's weight slice (its float32 biases at the head of its first piece) is
 //   staged into shared memory ahead of use with the 1-D bulk copy (cp.async.bulk ...
 //   mbarrier::complete_tx::bytes) into a ring of STAGES slots of SLOT_BYTES; one thread
@@ -45,10 +47,12 @@
 //   piece's offset and size for each rank.
 // - Every rank takes a final cluster barrier before it exits, since a peer may still write
 //   into its shared memory.
-// On the H100 a cluster of 8 CTAs with this plan fits 15 times at once
-// (cudaOccupancyMaxActiveClusters), so B 256 (16 tiles) runs in two waves. Per tile the
-// time goes to each product's fixed chain (piece, products, split-K sum, DSMEM epilogue,
-// barrier), not to the weight stream: clusters of 4 or 16 take about as long per tile.
+// The cluster is 8, portable: humanoid_state.yaml acts on one 16-row tile (8 environments,
+// 10 evaluation episodes), where 8 CTAs beat 4 and match a non-portable 16. On the H100 a
+// cluster of 8 with this plan fits 15 times at once (cudaOccupancyMaxActiveClusters), so B
+// 256 (16 tiles) runs in two waves. Per tile the time goes to each product's fixed chain
+// (piece, products, split-K sum, epilogue, barrier), not to the weight stream: clusters of
+// 4 or 16 take about as long per tile.
 //
 // Widths: hidden % (8 x CLUSTER) == 0; the latent and out_fc1's width are padded to a
 // multiple of 8 x CLUSTER with zero weights. ops/denoise.py mirrors the shared-memory plan
@@ -80,11 +84,12 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 
 // Shared-memory plan (bytes); sweep_smem_bytes(..., torch.bfloat16) in ops/denoise.py
 // mirrors it. Operand copies are bf16 with 8 columns of row padding (ldmatrix without bank
-// conflicts); the residual stream and the modulation are whole float32 copies; z is the
-// rank's float32 slice. The split-K partials are double-buffered.
+// conflicts); the residual stream, the modulation and z are the rank's float32 slices; the
+// adaLN statistics are CLUSTER x TB float2, one per rank and row. The split-K partials are
+// double-buffered.
 struct Plan {
   int Dp, HC, DC, NP1, ldz, ldh, ldm;
-  size_t bars, table, red, zb, scb, xb, mb, hf, mf, zs, bytes;
+  size_t bars, table, red, zb, scb, xb, mb, hf, mf, st, zs, bytes;
 };
 
 __host__ __device__ inline Plan make_plan(int D, int H) {
@@ -104,8 +109,9 @@ __host__ __device__ inline Plan make_plan(int D, int H) {
   p.xb = p.scb + TB * p.ldh * 2;
   p.mb = p.xb + TB * p.ldh * 2;
   p.hf = p.mb + (size_t)TB * p.ldm * 2;
-  p.mf = p.hf + (size_t)TB * H * 4;
-  p.zs = p.mf + (size_t)TB * 2 * H * 4;
+  p.mf = p.hf + (size_t)TB * p.HC * 4;
+  p.st = p.mf + (size_t)TB * 2 * p.HC * 4;
+  p.zs = p.st + (size_t)CLUSTER * TB * 8;
   p.bytes = p.zs + TB * p.DC * 4;
   return p;
 }
@@ -180,9 +186,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ---- per-CTA state ---------------------------------------------------------------------
 
 // What a product's epilogue does with its rank's columns (8 at a time, one row):
-//   E_MOD         the modulation: scale columns into mf[:, rank's h-columns], shift columns
-//                 into mf[:, H + rank's h-columns], in every CTA of the cluster;
-//   E_STORE_H     h = value, E_ADD_H h += value, for the rank's h-columns, in every CTA;
+//   E_MOD         the modulation of the rank's h-columns, scale | shift, into its mf;
+//   E_STORE_H     h = value, E_ADD_H h += value, into the rank's hf;
 //   E_BCAST(_GELU, _SILU)  the next product's bf16 operand (value, gelu, silu), in every CTA;
 //   E_SCORE       p_sample of the rank's latent columns, then z's bf16 operand, in every CTA.
 enum Epi { E_MOD, E_STORE_H, E_ADD_H, E_BCAST, E_BCAST_GELU, E_BCAST_SILU, E_SCORE };
@@ -195,6 +200,7 @@ struct Ctx {
   float* red;     // two buffers of RED_FLOATS
   __nv_bfloat16 *zb, *scb, *xb, *mb;
   float *hf, *mf, *zs;
+  float2* st;     // adaLN statistics: (row sum, squared deviations) of each rank and row
   const uint2* table;  // this rank's piece table, copied to shared memory
   int rank, row0, step;
   unsigned seed;
@@ -220,18 +226,17 @@ __device__ __forceinline__ void refill(Ctx& c) {
   }
 }
 
-// Write 16 bytes at the same shared offset in every CTA of the cluster.
-__device__ __forceinline__ void broadcast16(void* dst, uint4 v) {
+// Write v at the same shared offset in every CTA of the cluster.
+template <typename T>
+__device__ __forceinline__ void broadcast(T* dst, T v) {
   cg::cluster_group cluster = cg::this_cluster();
 #pragma unroll
-  for (int q = 0; q < CLUSTER; ++q) *cluster.map_shared_rank(reinterpret_cast<uint4*>(dst), q) = v;
+  for (int q = 0; q < CLUSTER; ++q) *cluster.map_shared_rank(dst, q) = v;
 }
 
-__device__ __forceinline__ void broadcast_floats(float* dst, const float (&v)[8]) {
-  broadcast16(dst, make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
-                              __float_as_uint(v[2]), __float_as_uint(v[3])));
-  broadcast16(dst + 4, make_uint4(__float_as_uint(v[4]), __float_as_uint(v[5]),
-                                  __float_as_uint(v[6]), __float_as_uint(v[7])));
+__device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
 // Epilogue of one item: 8 columns [col, col+8) of the rank's slice, row r; v holds the
@@ -240,19 +245,18 @@ __device__ __forceinline__ void broadcast_floats(float* dst, const float (&v)[8]
 template <int E>
 __device__ __forceinline__ void epilogue(Ctx& c, int r, int col, float (&v)[8],
                                          __nv_bfloat16* bf, int ld) {
-  const int H = c.a.H, HC = c.p.HC;
+  const int HC = c.p.HC;
   if (E == E_MOD) {
-    const int dst = col < HC ? c.rank * HC + col : H + c.rank * HC + col - HC;
-    broadcast_floats(c.mf + r * 2 * H + dst, v);
+    store8(c.mf + r * 2 * HC + col, v);
     return;
   }
   if (E == E_STORE_H || E == E_ADD_H) {
-    float* h = c.hf + r * H + c.rank * HC + col;
+    float* h = c.hf + r * HC + col;
     if (E == E_ADD_H) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] += h[k];  // the rank's own columns: only it writes them
+      for (int k = 0; k < 8; ++k) v[k] += h[k];  // this thread's own item
     }
-    broadcast_floats(h, v);
+    store8(h, v);
     return;
   }
   if (E == E_SCORE) {
@@ -279,8 +283,9 @@ __device__ __forceinline__ void epilogue(Ctx& c, int r, int col, float (&v)[8],
     if (E == E_BCAST_GELU) v[k] = gelu_tanh(v[k]);
     if (E == E_BCAST_SILU) v[k] = silu(v[k]);
   }
-  broadcast16(bf + r * ld + col, make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                                            pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7])));
+  broadcast(reinterpret_cast<uint4*>(bf + r * ld + col),
+            make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                       pack_bf16(v[6], v[7])));
 }
 
 // One product: the rank's NT n-tiles (8 columns each) of A (TB x 16 KS, bf16, shared, row
@@ -386,49 +391,69 @@ __device__ void product(Ctx& c, const __nv_bfloat16* A, int lda, int KS, int NT,
   }
 }
 
-// x = LN(h) * (1 + scale) + shift over all H columns, from the whole copies of h and of
-// the modulation, rounded to bf16 into this CTA's xb (every CTA computes the same x).
-// Warp w handles rows 2w and 2w+1, a half-warp per row, each lane column pairs 2 l16 + 32 i
-// held in registers; two passes over them, as LayerNorm.
-constexpr int MAX_PAIRS = 16;  // H <= 512
+// x = LN(h) * (1 + scale) + shift for the rank's h-columns, rounded to bf16 into every
+// CTA's xb. Half-warp r (of warp r / 2) handles row r, 8 columns a lane.
+// Each rank's (row sum, squared deviations from its own mean) go to every CTA; after a
+// cluster barrier the row's mean and variance over all H columns are combined from them
+// (Chan et al.'s pairwise update), as LayerNorm's two passes compute them. Called after a
+// block barrier that follows the writes of hf and mf; ends in a cluster barrier, so xb is
+// whole. Every read of st precedes the second barrier, which precedes the next adaLN's
+// writes of it; every read of xb precedes the next adaLN's first barrier.
+constexpr int MAX_HC = 8 * 16;  // one group of 8 columns per lane of a half-warp
 
-__device__ void adaln(Ctx& c) {
-  const int lane = threadIdx.x & 31, l16 = lane & 15;
+__device__ void adaln(Ctx& c, cg::cluster_group& cluster) {
+  const int lane = threadIdx.x & 31, col = 8 * (lane & 15);
   const int r = 2 * (threadIdx.x >> 5) + (lane >> 4);
-  const int H = c.a.H, pairs = H / 32;
-  const float* hr = c.hf + r * H;
-  const float* mr = c.mf + r * 2 * H;
-  float2 hv[MAX_PAIRS];
+  const int HC = c.p.HC;
+  const bool mine = col < HC;
+  float h[8];
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < MAX_PAIRS; ++i)
-    if (i < pairs) {
-      hv[i] = *reinterpret_cast<const float2*>(hr + 2 * l16 + 32 * i);
-      s += hv[i].x + hv[i].y;
-    }
+  for (int k = 0; k < 8; ++k) h[k] = 0.f;
+  if (mine) {
+    const float4 h0 = *reinterpret_cast<const float4*>(c.hf + r * HC + col);
+    const float4 h1 = *reinterpret_cast<const float4*>(c.hf + r * HC + col + 4);
+    h[0] = h0.x, h[1] = h0.y, h[2] = h0.z, h[3] = h0.w;
+    h[4] = h1.x, h[5] = h1.y, h[6] = h1.z, h[7] = h1.w;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s += h[k];
+  }
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  const float mean = s / H;
+  const float own_mean = s / HC;
+  float m2 = 0.f;
+  if (mine) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) m2 += (h[k] - own_mean) * (h[k] - own_mean);
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) m2 += __shfl_xor_sync(0xffffffffu, m2, o);
+  if ((lane & 15) == 0) broadcast(c.st + c.rank * TB + r, make_float2(s, m2));
+  cluster.sync();
+  const float H = (float)c.a.H;
+  float total = 0.f;
+#pragma unroll
+  for (int q = 0; q < CLUSTER; ++q) total += c.st[q * TB + r].x;
+  const float mean = total / H;
   float var = 0.f;
 #pragma unroll
-  for (int i = 0; i < MAX_PAIRS; ++i)
-    if (i < pairs) {
-      const float d0 = hv[i].x - mean, d1 = hv[i].y - mean;
-      var += d0 * d0 + d1 * d1;
-    }
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
+  for (int q = 0; q < CLUSTER; ++q) {
+    const float2 e = c.st[q * TB + r];
+    const float d = e.x / HC - mean;
+    var += e.y + HC * d * d;
+  }
   const float rstd = rsqrtf(var / H + LN_EPS);
+  if (mine) {
+    const float* m = c.mf + r * 2 * HC + col;
+    uint32_t x[4];
 #pragma unroll
-  for (int i = 0; i < MAX_PAIRS; ++i)
-    if (i < pairs) {
-      const int col = 2 * l16 + 32 * i;
-      const float2 scale = *reinterpret_cast<const float2*>(mr + col);
-      const float2 shift = *reinterpret_cast<const float2*>(mr + H + col);
-      *reinterpret_cast<uint32_t*>(c.xb + r * c.p.ldh + col) =
-          pack_bf16((hv[i].x - mean) * rstd * (1.f + scale.x) + shift.x,
-                    (hv[i].y - mean) * rstd * (1.f + scale.y) + shift.y);
-    }
+    for (int k = 0; k < 8; k += 2)
+      x[k / 2] = pack_bf16((h[k] - mean) * rstd * (1.f + m[k]) + m[HC + k],
+                           (h[k + 1] - mean) * rstd * (1.f + m[k + 1]) + m[HC + k + 1]);
+    broadcast(reinterpret_cast<uint4*>(c.xb + r * c.p.ldh + c.rank * HC + col),
+              make_uint4(x[0], x[1], x[2], x[3]));
+  }
+  cluster.sync();
 }
 
 template <int V>  // 1: v1 algebra, 2: v2
@@ -448,6 +473,7 @@ __global__ void __launch_bounds__(THREADS, 1) denoise_sweep_bf16_kernel(Args a) 
   c.mb = reinterpret_cast<__nv_bfloat16*>(smem + p.mb);
   c.hf = reinterpret_cast<float*>(smem + p.hf);
   c.mf = reinterpret_cast<float*>(smem + p.mf);
+  c.st = reinterpret_cast<float2*>(smem + p.st);
   c.zs = reinterpret_cast<float*>(smem + p.zs);
   c.table = reinterpret_cast<const uint2*>(smem + p.table);
   c.rank = (int)cluster.block_rank();
@@ -494,34 +520,31 @@ __global__ void __launch_bounds__(THREADS, 1) denoise_sweep_bf16_kernel(Args a) 
           pack_bf16(silu(e0 + te[col]), silu(e1 + te[col + 1]));
     }
     __syncthreads();
-    // Every read of hf or mf precedes a cluster barrier that precedes the next write of
-    // it by any rank; so does every read of mb and zb.
+    // hf and mf are the rank's own: a block barrier orders their writes before adaln's
+    // reads, and adaln's cluster barriers its reads before the next writes. Every read of
+    // mb and zb precedes a cluster barrier that precedes the next write of it by any rank.
     product<E_STORE_H>(c, c.zb, p.ldz, p.Dp / 16, nth);                  // latent_proj
     for (int l = 0; l < L; ++l) {
       product<E_MOD>(c, c.scb, p.ldh, ksh, ntm);                         // mod1 / site 2l
-      cluster.sync();
-      adaln(c);
+      __syncthreads();
+      adaln(c, cluster);
       if (V == 1) {
-        __syncthreads();
         product<E_BCAST>(c, c.xb, p.ldh, ksh, nth, c.mb + c.rank * HC, p.ldh);  // v_proj
         cluster.sync();
         product<E_ADD_H>(c, c.mb, p.ldh, ksh, nth);                      // out_proj
       } else {
-        cluster.sync();  // every rank has read hf and mf before any writes them again
         product<E_ADD_H>(c, c.xb, p.ldh, ksh, nth);                      // x @ (Wv Wo)
       }
       product<E_MOD>(c, c.scb, p.ldh, ksh, ntm);                         // mod2 / site 2l+1
-      cluster.sync();
-      adaln(c);
       __syncthreads();
+      adaln(c, cluster);
       product<E_BCAST_GELU>(c, c.xb, p.ldh, ksh, 4 * nth, c.mb + c.rank * 4 * HC, ld4);
       cluster.sync();
       product<E_ADD_H>(c, c.mb, ld4, 4 * H / 16, nth);                   // fc2
     }
     product<E_MOD>(c, c.scb, p.ldh, ksh, ntm);                           // final / site 2L
-    cluster.sync();
-    adaln(c);
     __syncthreads();
+    adaln(c, cluster);
     product<E_BCAST_SILU>(c, c.xb, p.ldh, ksh, nc1 / 8, c.mb + c.rank * nc1, ld1);
     cluster.sync();
     product<E_SCORE>(c, c.mb, ld1, p.NP1 / 16, DC / 8, c.zb + c.rank * DC, p.ldz);
@@ -552,19 +575,14 @@ cudaLaunchConfig_t config(int B, size_t smem_bytes, cudaStream_t stream,
 
 template <int V>
 int prepare(size_t smem_bytes) {
-  cudaError_t err = cudaFuncSetAttribute(denoise_sweep_bf16_kernel<V>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes);
-  if (err == cudaSuccess && CLUSTER > 8)
-    err = cudaFuncSetAttribute(denoise_sweep_bf16_kernel<V>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return (int)err;
+  return (int)cudaFuncSetAttribute(denoise_sweep_bf16_kernel<V>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
 }
 
 template <int V>
 int launch(const Args& a, size_t smem_bytes, cudaStream_t stream) {
   if (a.B <= 0 || a.K <= 0 || a.P <= 0 || a.P > MAX_PIECES || a.H % (8 * CLUSTER) != 0 ||
-      a.H > 32 * MAX_PAIRS ||
+      a.H / CLUSTER > MAX_HC ||
       smem_bytes != make_plan(a.D, a.H).bytes)
     return (int)cudaErrorInvalidValue;
   int err = prepare<V>(smem_bytes);

@@ -421,10 +421,10 @@ def sweep_smem_bytes(latent_dim: int, hidden_dim: int, variant: str = "v1",
     bfloat16 kernels, per CTA of a cluster, either variant: the weight ring,
     its barriers, the piece table, two buffers of split-K partials, bf16
     operand copies of the whole latent (padded to 8 x ``KERNEL_CLUSTER``),
-    silu(cond), the adaLN output and the MLP hidden (rows padded by 8),
-    float32 copies of the whole residual stream and of one modulation, and
-    the rank's float32 slice of z. Mirrors ``make_plan`` in
-    csrc/denoise_sweep_bf16.cu."""
+    silu(cond), the adaLN output and the MLP hidden (rows padded by 8), the
+    rank's float32 slices of the residual stream, of one modulation and of z,
+    and the adaLN statistics (a float2 per rank and row). Mirrors
+    ``make_plan`` in csrc/denoise_sweep_bf16.cu."""
     tb = ROWS_PER_BLOCK
     if dtype != torch.bfloat16:
         d_pad = -(-latent_dim // 4) * 4
@@ -436,7 +436,7 @@ def sweep_smem_bytes(latent_dim: int, hidden_dim: int, variant: str = "v1",
     return (STAGES * SLOT_BYTES + 64 + 8 * MAX_PIECES + 2 * 4 * tb * (8 * CHUNK_TILES + 8)
             + 2 * tb * (d_pad + 8) + 2 * 2 * tb * (hidden_dim + 8)
             + 2 * tb * (max(4 * hidden_dim, out1) + 8)
-            + 4 * tb * (3 * hidden_dim + d_pad // c))
+            + 4 * tb * (3 * hidden_dim // c + d_pad // c) + 8 * c * tb)
 
 
 def kernel_smem_bytes(latent_dim: int, hidden_dim: int, variant: str, dtype: torch.dtype) -> int:

@@ -2,12 +2,13 @@
 
     python -m active_inference_diffusion_torch.tools.profile_act [--batch 256] [--calls 5]
 
-Builds the humanoid_state.yaml agent (its v1 bf16 sweep; random weights
-from a seed, as ``chip_smoke.py``), warms it up, then runs ``--calls`` eval ``act`` calls
-under ``torch.profiler`` (CPU and CUDA activities). Prints, as JSON lines:
-the host time per call, the device time per call summed over kernels, the
+Run from the repository root. Builds the humanoid_state.yaml agent (its v1
+bf16 sweep; random weights from a seed by ``chip_smoke.py``'s
+``randomize``), warms it up, then runs ``--calls`` eval ``act`` calls under
+``torch.profiler`` (CPU and CUDA activities). Prints, as JSON lines: the
+host time per call, the device time per call summed over kernels, the
 share of the call's span the device was busy, and the kernels that took the
-most device time. Needs a CUDA device.
+most device time, with the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -19,9 +20,10 @@ import time
 import numpy as np
 import torch
 
+from chip_smoke import nvidia_smi, randomize
+
 from ..agents.state_agent import DiffusionStateAgent
 from ..configs.presets import HUMANOID_ACT_DIM, HUMANOID_OBS_DIM, humanoid_state
-from .sweep_times import card
 
 
 def main() -> int:
@@ -37,13 +39,7 @@ def main() -> int:
 
     cfg, training = humanoid_state()
     agent = DiffusionStateAgent(HUMANOID_OBS_DIM, HUMANOID_ACT_DIM, cfg, training)
-    gen = torch.Generator().manual_seed(200)
-    with torch.no_grad():
-        for name, p in agent.core.named_parameters():
-            fan_in = p.shape[-1] if p.dim() == 2 else p.shape[0]
-            p.copy_(torch.randn(p.shape, generator=gen) / fan_in**0.5)
-            if name.endswith("output_multiplier"):
-                p.fill_(1.0)
+    randomize(agent.core, seed=200)
     obs = np.random.default_rng(1).standard_normal((args.batch, HUMANOID_OBS_DIM))
     obs = obs.astype(np.float32)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -65,7 +61,7 @@ def main() -> int:
     rows = [
         dict(what="act", batch=args.batch, host_ms_per_call=host_ms,
              device_ms_per_call=device_ms, device_busy_share=device_ms / host_ms,
-             kernels_per_call=len(kernels) / args.calls, card=card()),
+             kernels_per_call=len(kernels) / args.calls, card=nvidia_smi()),
         *(dict(what="top_kernel", name=name[:80], device_ms_per_call=ms) for name, ms in top),
     ]
     for row in rows:

@@ -1,202 +1,32 @@
 """Time the sweep kernels on the card at the humanoid_state.yaml width.
 
-    python -m active_inference_diffusion_torch.tools.sweep_times [--batches 8 256] [--steps 50]
-        [--kernels ...] [--cluster N]
+    python -m active_inference_diffusion_torch.tools.sweep_times [--kernels ...]
+        [--batches 8 256] [--steps 50] [--calls 10] [--label TEXT]
 
-For each kernel and batch it builds the kernels from this checkout, holds
-one deterministic and one stochastic sweep against the plain version
-(``chip_smoke.py``'s tolerances), then times stochastic sweeps with CUDA
-events (median of ``--calls`` after warm-up). One JSON object per line on
-standard output; each names the card (``nvidia-smi`` name and power limit). Needs a CUDA device; it is the
-record behind the design steps of the bfloat16 kernels in PERF.md.
-
-``--define NAME=VALUE`` (repeatable) times the bfloat16 kernels built with
-another value of one of their plan constants: a copy of
-``csrc/denoise_sweep_bf16.cu`` with ``constexpr int NAME`` set to VALUE,
-built into its own directory, with the Python mirror of the constant set
-too (CLUSTER lays the pack out for that many ranks). It measures the
-alternatives to the chosen plan (CLUSTER=1: one CTA per 16-row tile;
-CLUSTER=16: a non-portable cluster); the port itself has one.
-``--profile`` adds clock64() counters around the kernel's waits to that
-copy and reports, for thread 0 of the first CTA, the share of its cycles
-spent waiting for weight pieces, at block barriers and at cluster
-barriers.
+Run from the repository root: it takes ``chip_smoke.py``'s seeded inputs,
+tolerances and timer. For each kernel and batch it holds one deterministic
+and one stochastic sweep against the plain version, then times stochastic
+sweeps with CUDA events (median of ``--calls`` after warm-up). One JSON
+object per line on standard output, each with the card's name and power
+limit. To compare two trees, run it from each, in turns, in one session on
+one card. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import re
 import json
 import statistics
-import subprocess
 
 import torch
 
-from ..core.schedules import make_schedule
-from ..models.score_network import LatentScoreNetwork
-from ..ops import _build, denoise
-from ..ops.denoise import (
-    KERNELS,
-    denoise_sweep_reference,
-    fused_denoise_sweep,
-    fused_denoise_sweep_v2,
-    packed_trunk_weights,
-)
+from chip_smoke import SWEEP_TOL, WARMUP_CALLS, cuda_ms, nvidia_smi, sweep_inputs
 
-WRAPPERS = {"v1": fused_denoise_sweep, "v2": fused_denoise_sweep_v2}
-# chip_smoke.py's SWEEP_TOL: (rtol, atol) per weight type.
-TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
-OBS_DIM = 376  # Humanoid-v4
+from ..ops import _build
+from ..ops.denoise import KERNELS, denoise_sweep_reference, kernel_smem_bytes
 
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def sweep_args(kernel, batch, steps, latent=64, hidden=256, layers=6, seed=7):
-    """chip_smoke.py's seeded inputs: normal / sqrt(fan_in) weights,
-    output_multiplier 1."""
-    variant, dtype, _, _ = KERNELS[kernel]
-    dev = torch.device("cuda")
-    net = LatentScoreNetwork(latent, OBS_DIM, hidden_dim=hidden, num_layers=layers).to(dev)
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in net.named_parameters():
-            fan_in = p.shape[-1] if p.dim() == 2 else p.shape[0]
-            p.copy_(torch.randn(p.shape, generator=gen) / fan_in**0.5)
-            if name.endswith("output_multiplier"):
-                p.fill_(1.0)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    z0 = torch.randn((batch, latent), generator=g, device=dev)
-    obs = torch.randn((batch, OBS_DIM), generator=g, device=dev)
-    with torch.no_grad():
-        obs_emb = net.obs_embedding(obs).contiguous()
-        t = torch.arange(steps - 1, -1, -1, device=dev, dtype=torch.float32)
-        t_embs = net.time_embedding(t, continuous=False).contiguous()
-    seed_t = torch.tensor(1234 + seed, dtype=torch.int64, device=dev)
-    packed = packed_trunk_weights(net, variant, dtype)
-    return WRAPPERS[variant], (make_schedule(steps, "cosine", device=dev), packed, z0, obs_emb,
-                               t_embs, seed_t, steps, layers)
-
-
-def use_variant(defines: dict, profile: bool) -> None:
-    """Build and lay out the bfloat16 kernels with other values of their
-    plan constants (``defines``: name -> value, e.g. CLUSTER, STAGES,
-    SLOT_BYTES, UNROLL), and with ``profile``, with clock64() counters around
-    the waits (see ``PROFILE_PHASES``); see the module note."""
-    src = _build.SOURCES["denoise_sweep_bf16"].read_text()
-    for name, value in defines.items():
-        match = re.search(rf"constexpr int {name} = (\d+);", src)
-        if not match:
-            raise RuntimeError(f"no constant {name} in denoise_sweep_bf16.cu")
-        src = src.replace(match.group(0), f"constexpr int {name} = {value};")
-        python_name = {"CLUSTER": "KERNEL_CLUSTER"}.get(name, name)
-        if hasattr(denoise, python_name):
-            setattr(denoise, python_name, value)
-    if profile:
-        src = instrument(src)
-    tag = "_".join(f"{k.lower()}{v}" for k, v in defines.items()) + ("_profile" if profile else "")
-    csrc = _build.BUILD_DIR.parent / f"aid_torch_kernels_{tag}"
-    csrc.mkdir(parents=True, exist_ok=True)
-    (csrc / "denoise_sweep_bf16.cu").write_text(src)
-    for header in _build.HEADERS:
-        (csrc / header.name).write_text(header.read_text())
-    _build.CSRC = _build.BUILD_DIR = csrc
-    _build.SOURCES = {"denoise_sweep_bf16": csrc / "denoise_sweep_bf16.cu"}
-    _build.HEADERS = tuple(csrc / h.name for h in _build.HEADERS)
-    _build.load_library.cache_clear()
-
-
-# clock64() cycles of thread 0 of the first CTA: waiting for weight pieces, at block
-# barriers and at cluster barriers; in the whole kernel; in epilogues, in adaLN, and from a
-# piece's arrival to its barrier (the products and the partials); in issuing copies.
-PROFILE_PHASES = ("piece_wait", "block_barrier", "cluster_barrier", "total", "epilogue",
-                  "adaln", "products", "refill")
-
-
-def instrument(src: str) -> str:
-    """The kernel source with clock64() counters (``PROFILE_PHASES``) and a C
-    function that reads and resets them, ``aid_profile_read(unsigned long long out[8])``."""
-    timer = ("{{ const long long _t = clock64(); {stmt} "
-             "if (blockIdx.x == 0 && threadIdx.x == 0) aid_profile[{i}] += clock64() - _t; }}")
-    wait = ("      for (long long spins = 0; !mbar_try_wait(c.bars + 8 * slot, parity);)\n"
-            "        if (++spins > (1ll << 28)) __trap();  // a piece that never lands faults, not hangs")
-    barrier = re.search(r"      __syncthreads\(\);  // every read of this piece's slot is done.*", src)
-    if not barrier:
-        raise RuntimeError("instrument: the piece barrier not found")
-    barrier = barrier.group(0)
-    edits = [
-        (wait, timer.format(stmt=wait.strip().split("//")[0], i=0)
-         + "\n      const long long _tp = clock64();"),
-        (barrier, "      if (blockIdx.x == 0 && threadIdx.x == 0) aid_profile[6] += clock64() - _tp;\n"
-         + timer.format(stmt="__syncthreads();", i=1)),
-        ("cluster.sync();", timer.format(stmt="cluster.sync();", i=2)),
-        ("epilogue<E>(c, r, col, v, bf, ld);", timer.format(stmt="epilogue<E>(c, r, col, v, bf, ld);", i=4)),
-        ("adaln(c);", timer.format(stmt="adaln(c);", i=5)),
-        ("      refill(c);", timer.format(stmt="refill(c);", i=7)),
-        ("  extern __shared__ __align__(128) char smem[];",
-         "  extern __shared__ __align__(128) char smem[];\n  const long long _t_start = clock64();"),
-        ("  for (int i = threadIdx.x; i < TB * DC; i += THREADS) {\n"
-         "    const int r = i / DC, col = c.rank * DC + i % DC, row = c.row0 + r;",
-         "  if (blockIdx.x == 0 && threadIdx.x == 0) aid_profile[3] += clock64() - _t_start;\n"
-         "  for (int i = threadIdx.x; i < TB * DC; i += THREADS) {\n"
-         "    const int r = i / DC, col = c.rank * DC + i % DC, row = c.row0 + r;"),
-        ("namespace {\n", "__device__ unsigned long long aid_profile[8];\n\nnamespace {\n"),
-    ]
-    for old, new in edits:
-        if old not in src:
-            raise RuntimeError(f"instrument: anchor not found: {old[:60]!r}")
-        src = src.replace(old, new)
-    return src + (
-        '\nextern "C" int aid_profile_read(unsigned long long* out) {\n'
-        "  cudaError_t err = cudaMemcpyFromSymbol(out, aid_profile, sizeof(aid_profile));\n"
-        "  static const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
-        "  if (err == cudaSuccess) err = cudaMemcpyToSymbol(aid_profile, zero, sizeof(zero));\n"
-        "  return (int)err;\n}\n"
-    )
-
-
-def profile_counters(library: str) -> dict:
-    """Read and reset the instrumented library's counters."""
-    out = (ctypes.c_ulonglong * 8)()
-    lib = _build.load_library(library)
-    if lib.aid_profile_read(out) != 0:
-        raise RuntimeError("aid_profile_read failed")
-    return dict(zip(PROFILE_PHASES, out))
-
-
-def graph_ms(fn, calls: int) -> float:
-    """Median milliseconds of ``fn`` captured once into a CUDA graph and
-    replayed (its kernels without the host's launch cost)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return kernel_ms(graph.replay, calls)
-
-
-def kernel_ms(fn, calls: int) -> float:
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(calls):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+HUMANOID = dict(latent=64, hidden=256, layers=6, obs_dim=376)  # Humanoid-v4
 
 
 def main() -> int:
@@ -206,53 +36,35 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=50)
     parser.add_argument("--calls", type=int, default=10)
     parser.add_argument("--label", default="")
-    parser.add_argument("--define", action="append", default=[],
-                        help="NAME=VALUE: another value of a plan constant of the bf16 kernels")
-    parser.add_argument("--profile", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("sweep_times needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    defines = {k: int(v) for k, v in (d.split("=") for d in args.define)}
-    if defines or args.profile:
-        use_variant(defines, args.profile)
-    name = card()
+    card = nvidia_smi()
     for kernel in args.kernels:
+        variant, dtype, library, _ = KERNELS[kernel]
         for batch in args.batches:
-            try:
-                wrapper, sweep = sweep_args(kernel, batch, args.steps)
-                denoise.kernel_smem_bytes(64, 256, KERNELS[kernel][0], KERNELS[kernel][1])
-            except ValueError as exc:  # a cluster size whose plan does not fit
-                print(json.dumps(dict(label=args.label, kernel=kernel, batch=batch,
-                                      defines=defines, refused=str(exc))), flush=True)
-                continue
-            rtol, atol = TOL[sweep[1].dtype]
-            worst, err = 0.0, 0.0
+            wrapper, sweep = sweep_inputs(kernel, batch, **HUMANOID, schedule_len=args.steps,
+                                          steps=args.steps, seed=7)
+            rtol, atol = SWEEP_TOL[dtype]
+            err, worst = 0.0, 0.0
             for deterministic in (True, False):
                 got = wrapper(*sweep, deterministic=deterministic)
                 want = denoise_sweep_reference(*sweep, deterministic=deterministic)
-                diff = (got - want).abs()
                 if not torch.isfinite(got).all():
                     raise RuntimeError(f"{kernel} B={batch}: output not finite")
+                diff = (got - want).abs()
                 err = max(err, float(diff.max()))
                 worst = max(worst, float((diff / (atol + rtol * want.abs())).max()))
-            ms = kernel_ms(lambda: wrapper(*sweep, deterministic=False), args.calls)
+            run = lambda: wrapper(*sweep, deterministic=False)  # noqa: E731
+            cuda_ms(run, WARMUP_CALLS)
             row = dict(label=args.label, kernel=kernel, batch=batch, steps=args.steps,
-                       defines=defines, ms=ms, max_abs_err=err,
-                       err_over_tol=worst, card=name)
-            variant, dtype, library, _ = KERNELS[kernel]
-            if args.profile:
-                profile_counters(library)  # reset
-                wrapper(*sweep, deterministic=False)
-                torch.cuda.synchronize()
-                counts = profile_counters(library)
-                row["cycles"] = counts["total"]
-                row["share"] = {k: counts[k] / counts["total"] for k in PROFILE_PHASES
-                                if k != "total"}
-            if dtype == torch.bfloat16:  # clusters the card holds at once at this plan
+                       ms=statistics.median(cuda_ms(run, args.calls)), max_abs_err=err,
+                       err_over_tol=worst, card=card)
+            if dtype == torch.bfloat16:  # clusters the card holds at once with this plan
                 count = ctypes.c_int(0)
-                smem = denoise.kernel_smem_bytes(64, 256, variant, dtype)
+                smem = kernel_smem_bytes(HUMANOID["latent"], HUMANOID["hidden"], variant, dtype)
                 _build.load_library(library).aid_sweep_bf16_max_clusters(
                     1 if variant == "v1" else 2, smem, ctypes.byref(count))
                 row["max_active_clusters"] = count.value

@@ -144,6 +144,52 @@ def cuda_ms(fn, calls: int) -> list:
     return times
 
 
+def graph_ms(fn, calls: int) -> float:
+    """Median milliseconds of ``fn`` captured once into a CUDA graph and
+    replayed: its kernels without the host's launch cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    cuda_ms(graph.replay, WARMUP_CALLS)
+    return statistics.median(cuda_ms(graph.replay, calls))
+
+
+def sweep_inputs(kernel, batch, latent, hidden, layers, schedule_len, steps, seed,
+                 obs_dim=FLAGSHIP_OBS):
+    """A seeded score network (``randomize``) packed for ``kernel``, and a
+    sweep's inputs on the card: the kernel's wrapper and its arguments."""
+    from active_inference_diffusion_torch.core.schedules import make_schedule
+    from active_inference_diffusion_torch.models.score_network import LatentScoreNetwork
+    from active_inference_diffusion_torch.ops.denoise import (
+        KERNELS,
+        fused_denoise_sweep,
+        fused_denoise_sweep_v2,
+        packed_trunk_weights,
+    )
+
+    dev = torch.device("cuda")
+    variant, dtype, _, _ = KERNELS[kernel]
+    net = LatentScoreNetwork(latent, obs_dim, hidden_dim=hidden, num_layers=layers).to(dev)
+    randomize(net, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z0 = torch.randn((batch, latent), generator=gen, device=dev)
+    obs = torch.randn((batch, obs_dim), generator=gen, device=dev)
+    with torch.no_grad():
+        obs_emb = net.obs_embedding(obs).contiguous()
+        t = torch.arange(steps - 1, -1, -1, device=dev, dtype=torch.float32)
+        t_embs = net.time_embedding(t, continuous=False).contiguous()
+    seed_t = torch.tensor(1234 + seed, dtype=torch.int64, device=dev)
+    schedule = make_schedule(schedule_len, "cosine", device=dev)
+    packed = packed_trunk_weights(net, variant, dtype)
+    wrapper = {"v1": fused_denoise_sweep, "v2": fused_denoise_sweep_v2}[variant]
+    return wrapper, (schedule, packed, z0, obs_emb, t_embs, seed_t, steps, layers)
+
+
 def host_ms(fn, calls: int) -> list:
     times = []
     for _ in range(calls):
@@ -170,18 +216,12 @@ def main() -> int:
         HUMANOID_OBS_DIM,
         humanoid_state,
     )
-    from active_inference_diffusion_torch.core.schedules import make_schedule
-    from active_inference_diffusion_torch.models.score_network import LatentScoreNetwork
     from active_inference_diffusion_torch.ops import _build
     from active_inference_diffusion_torch.ops.denoise import (
         KERNELS,
         LAUNCHES,
         denoise_sweep_reference,
-        fused_denoise_sweep,
-        fused_denoise_sweep_v2,
-        packed_trunk_weights,
     )
-    from active_inference_diffusion_torch.tools.sweep_times import graph_ms
 
     dev = torch.device("cuda")
     card = nvidia_smi()
@@ -189,7 +229,6 @@ def main() -> int:
         f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    wrappers = {"v1": fused_denoise_sweep, "v2": fused_denoise_sweep_v2}
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -204,23 +243,6 @@ def main() -> int:
                 log(f"[2 build] ptxas {name}: {line.strip()}")
 
     # -- 3. kernels vs plain version ----------------------------------------
-    def sweep_inputs(kernel, batch, latent, hidden, layers, schedule_len, steps, seed,
-                     obs_dim=FLAGSHIP_OBS):
-        variant, dtype, _, _ = KERNELS[kernel]
-        net = LatentScoreNetwork(latent, obs_dim, hidden_dim=hidden, num_layers=layers).to(dev)
-        randomize(net, seed)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        z0 = torch.randn((batch, latent), generator=gen, device=dev)
-        obs = torch.randn((batch, obs_dim), generator=gen, device=dev)
-        with torch.no_grad():
-            obs_emb = net.obs_embedding(obs).contiguous()
-            t = torch.arange(steps - 1, -1, -1, device=dev, dtype=torch.float32)
-            t_embs = net.time_embedding(t, continuous=False).contiguous()
-        seed_t = torch.tensor(1234 + seed, dtype=torch.int64, device=dev)
-        schedule = make_schedule(schedule_len, "cosine", device=dev)
-        packed = packed_trunk_weights(net, variant, dtype)
-        return wrappers[variant], (schedule, packed, z0, obs_emb, t_embs, seed_t, steps, layers)
-
     max_abs_err = {name: 0.0 for name in KERNELS}
     for i, (kernel, name, batch, latent, hidden, layers, k_sched, steps) in enumerate(PARITY_SHAPES):
         wrapper, args = sweep_inputs(kernel, batch, latent, hidden, layers, k_sched, steps, seed=i)

@@ -97,9 +97,11 @@ def test_kernel_matches_plain_version(cuda, shape, deterministic):
     [("v1", torch.bfloat16), ("v2", torch.float32), ("v2", torch.bfloat16)],
     ids=["v1-bf16", "v2-f32", "v2-bf16"],
 )
-@pytest.mark.parametrize("shape", [(8, 8, 64, 2), (37, 50, 64, 2)], ids=["tiny", "ragged"])
+@pytest.mark.parametrize("shape", [(8, 8, 32, 2), (37, 50, 64, 2)], ids=["tiny", "ragged"])
 @pytest.mark.parametrize("deterministic", [True, False], ids=["det", "sto"])
 def test_kernel_variants_match_plain_version(cuda, variant, dtype, shape, deterministic):
+    if dtype == torch.bfloat16:  # the bf16 kernels' hidden width: a multiple of 64
+        shape = shape[:2] + (max(shape[2], 64),) + shape[3:]
     args = sweep_args(cuda, *shape, steps=5, variant=variant, dtype=dtype)
     name = kernel_name(variant, dtype)
     before = dict(LAUNCHES)
