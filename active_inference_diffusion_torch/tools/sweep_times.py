@@ -8,8 +8,8 @@ tolerances and timer. For each kernel and batch it holds one deterministic
 and one stochastic sweep against the plain version, then times stochastic
 sweeps with CUDA events (median of ``--calls`` after warm-up). One JSON
 object per line on standard output, each with the card's name and power
-limit. To compare two trees, run it from each, in turns, in one session on
-one card. Needs a CUDA device.
+limit. To compare two trees, run it from each, in turns, on the same card.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
