@@ -1,58 +1,76 @@
-// The fused K-step reverse-diffusion belief sweep with bfloat16 weights, v1 and v2 algebra,
-// for NVIDIA Hopper (sm_90a).
+// The fused K-step reverse-diffusion belief sweep, v1 and v2 algebra, with float32 or
+// bfloat16 weights, for NVIDIA Hopper (sm_90a): four kernels from one template.
 //
 // Replaces the TPU kernels active_inference_diffusion_tpu/ops/denoise.py::_denoise_kernel
-// (aid_denoise_sweep_bf16) and ::_denoise_kernel_v2 (aid_denoise_sweep_v2_bf16) in their
-// bfloat16 mode (compute_dtype="bfloat16"). The sweep is that of denoise_sweep.cu (v1) and
-// denoise_sweep_v2.cu (v2), which keep the float32 kernels. Rounding sites are the TPU's
-// `x.astype(w.dtype)`: every product's activation operand (z before latent_proj,
-// silu(cond), each adaLN output, v_proj's output in v1, the gelu MLP hidden and the silu
-// out_fc1 output) is rounded to bfloat16 once, where it is written; products are bf16 x
-// bf16 summed in float32; biases, LayerNorm (eps 1e-6, no affine), silu(cond), the +-10
-// clip x output_multiplier and the p_sample update stay float32. The noise is the float32
-// kernels' Philox4x32-10, keyed by (seed, global row) and counted by (step, latent column).
+// (aid_denoise_sweep: float32, aid_denoise_sweep_bf16: bfloat16) and ::_denoise_kernel_v2
+// (aid_denoise_sweep_v2, aid_denoise_sweep_v2_bf16). One launch runs the whole sweep:
+//   cond = silu(obs_emb + t_emb[step])
+//   h = latent_proj(z)
+//   L x [ h += out_proj(v_proj(adaLN1(h))); h += fc2(gelu_tanh(fc1(adaLN2(h)))) ]
+//   score = clip(out_fc2(silu(out_fc1(adaLN_final(h)))), +-10) * output_multiplier
+//   z = c1 * (z + s1 * score) * s2 + c2 * z + noise_mask * sqrt(pv) * eps
+// v2 runs the same sweep with out_proj(v_proj(x)) as one product x @ (Wv Wo) and its 2L+1
+// modulations packed side by side (ops/denoise.py::extract_trunk_weights_v2). eps is a
+// counter-based Philox4x32-10 with Box-Muller, keyed by (seed, global row) and counted by
+// (step, latent column), so the draw depends neither on the tiling nor on the variant.
+//
+// Numerics by operand type T (the type of the stored weights):
+// - bfloat16: rounding sites are the TPU's `x.astype(w.dtype)`: every product's activation
+//   operand (z before latent_proj, silu(cond), each adaLN output, v_proj's output in v1, the
+//   gelu MLP hidden and the silu out_fc1 output) is rounded to bfloat16 once, where it is
+//   written; products are bf16 x bf16 (exact) on mma.sync m16n8k16, summed in float32.
+// - float32: nothing is rounded; products are accurate to float32 by 3xTF32 on mma.sync
+//   m16n8k8: each operand x splits into hi = tf32(x) and lo = tf32(x - hi) in registers
+//   (the weights from their stored float32, never stored split), and a k-step sums
+//   a_lo b_hi + a_hi b_lo + a_hi b_hi; the dropped a_lo b_lo is 2^-22 of the product.
+// - both: each k-step's mma sums from zero and the k-steps are added in float32, so the
+//   tensor cores' own accumulation never carries across k-steps. Biases, LayerNorm (eps
+//   1e-6, no affine), silu(cond), the +-10 clip x output_multiplier and the p_sample update
+//   are float32.
 //
 // What bounds it on the card. 2 x 5,693,440 (v1) / 5,300,224 (v2) weights x B x K
 // operations at the humanoid_state.yaml width (latent 64, hidden 256, L 6): 146 / 136
-// GFLOP at B 256, K 50, 0.15 ms at the tensor cores' 989 TFLOP/s. The trunk (11.4 MB of
-// bfloat16) fits L2, not an SM; each 16-row tile runs a chain of K x (4L+3) dependent
-// products. So the limit is how fast one tile's chain can stream its weights and pass its
-// barriers, not the arithmetic.
+// GFLOP at B 256, K 50, 0.15 ms at the tensor cores' 989 TFLOP/s in bf16 and 2.2 / 2.0 ms
+// at float32's 67 TFLOP/s. The trunk (11.4 MB in bf16, 22.8 MB in float32) fits L2, not an
+// SM; each 16-row tile runs a chain of K x (4L+3) dependent products. So the limit is how
+// fast one tile's chain can stream its weights and pass its barriers, not the arithmetic.
 //
 // The design.
-// - Tensor cores through mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: a tile's 16
-//   batch rows are exactly one M tile. Not wgmma: it needs 64-row tiles, which would cut
-//   the tiles at B 256 from 16 to 4 and leave 3/4 of each product's rows empty at B <= 48.
-//   A fragments come from the bfloat16 operand copies in shared memory by ldmatrix; B
-//   fragments from the pack's kernel-order buffer (PackedTrunk.kernel), laid out per
-//   product, per cluster rank, per chunk of <= 16 n-tiles and per piece of k-steps in
-//   fragment order (lane-contiguous 8 bytes), so a warp's B load is 256 contiguous bytes.
-//   Each k-step's mma sums from zero and the k-steps are added in float32 (mma_bf16).
+// - Tensor cores through mma.sync: a tile's 16 batch rows are exactly one M tile. Not
+//   wgmma: it needs 64-row tiles, which would cut the tiles at B 256 from 16 to 4 and leave
+//   3/4 of each product's rows empty at B <= 48. A fragments come from the operand copies
+//   in shared memory by ldmatrix (a k-step is 32 bytes of a row in both types: 16 bf16 or 8
+//   float32, whose 16 x 8 tile ldmatrix.x4 loads as four 8 x 4-word matrices); B fragments
+//   from the pack's kernel-order buffer (PackedTrunk.kernel), laid out per product, per
+//   cluster rank, per chunk of <= 16 n-tiles and per piece of k-steps in fragment order
+//   (lane-contiguous 8 bytes), so a warp's B load is 256 contiguous bytes.
 // - A cluster of CLUSTER CTAs runs each 16-row tile. Rank j computes columns
 //   [j N/C, (j+1) N/C) of every product, so it streams only 1/C of the weights, and writes
-//   the next product's bf16 operand into every CTA's shared memory (DSMEM). The float32
+//   the next product's operand into every CTA's shared memory (DSMEM). The float32
 //   residual stream h and the modulation stay distributed: rank j keeps only its
 //   h-columns [j H/C, (j+1) H/C) and the scale and shift of those columns, which it
 //   computes itself. An adaLN exchanges each rank's row sums and squared deviations (16
 //   rows x 2 floats), and after a cluster barrier every rank normalises its own columns
-//   and writes them, rounded to bf16, into every CTA: two cluster barriers an adaLN, 6L +
-//   4 a step in v1 and 5L + 4 in v2. v2 computes its 2L+1 modulation sites one at a time,
-//   where v1 computes mod1, mod2 and mod_final, so this kernel needs no device scratch
-//   (the float32 v2 kernel, denoise_sweep_v2.cu, still uses one).
+//   and writes them into every CTA: two cluster barriers an adaLN, 6L + 4 a step in v1 and
+//   5L + 4 in v2. v2 computes its 2L+1 modulation sites one at a time, as v1 computes mod1,
+//   mod2 and mod_final, so no variant needs device scratch.
 // - Each chunk's weight slice (its float32 biases at the head of its first piece) is
 //   staged into shared memory ahead of use with the 1-D bulk copy (cp.async.bulk ...
 //   mbarrier::complete_tx::bytes) into a ring of STAGES slots of SLOT_BYTES; one thread
 //   refills a slot after the block barrier that frees it, so the next pieces load while a
 //   product's epilogue and the cluster barrier run. The pack's piece table lists each
-//   piece's offset and size for each rank.
+//   piece's offset and size for each rank. A float32 piece holds half the k-steps of a
+//   bf16 one, so a float32 sweep has about twice the pieces.
 // - Every rank takes a final cluster barrier before it exits, since a peer may still write
 //   into its shared memory.
 // The cluster is 8, portable: humanoid_state.yaml acts on one 16-row tile (8 environments,
 // 10 evaluation episodes), where 8 CTAs beat 4 and match a non-portable 16. On the H100 a
-// cluster of 8 with this plan fits 15 times at once (cudaOccupancyMaxActiveClusters), so B
-// 256 (16 tiles) runs in two waves. Per tile the time goes to each product's fixed chain
-// (piece, products, split-K sum, epilogue, barrier), not to the weight stream: clusters of
-// 4 or 16 take about as long per tile.
+// cluster of 8 fits 15 times at once (cudaOccupancyMaxActiveClusters), so B 256 (16 tiles)
+// runs in two waves.
+//
+// Shared memory. Operand rows are padded by 16 bytes (8 bf16, 4 float32), which keeps
+// ldmatrix free of bank conflicts. The float32 plan at latent 64, hidden 256 is 230,464 B
+// of the 232,448 B a block may use; the MLP hidden's operand copy is 65,792 B of it.
 //
 // Widths: hidden % (8 x CLUSTER) == 0; the latent and out_fc1's width are padded to a
 // multiple of 8 x CLUSTER with zero weights. ops/denoise.py mirrors the shared-memory plan
@@ -77,58 +95,11 @@ constexpr int MAX_TILES = 2;                     // n-tiles a warp holds per chu
 constexpr int CHUNK_TILES = WARPS * MAX_TILES;   // n-tiles per chunk (128 columns)
 constexpr int RED_FLOATS = TB * (CHUNK_TILES * 8 + 8);  // split-K partials of one chunk
 constexpr int FRAG_BYTES = 32 * 8;               // one (n-tile, k-step) B fragment, a warp
-constexpr int MAX_PIECES = 512;                  // entries of a rank's piece table
+constexpr int MAX_PIECES = 256;                  // entries of a rank's piece table
 constexpr int UNROLL = 4;                        // k-steps whose fragments a warp loads at once
+constexpr int ROW_PAD = 16;                      // bytes of padding after each operand row
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// Shared-memory plan (bytes); sweep_smem_bytes(..., torch.bfloat16) in ops/denoise.py
-// mirrors it. Operand copies are bf16 with 8 columns of row padding (ldmatrix without bank
-// conflicts); the residual stream, the modulation and z are the rank's float32 slices; the
-// adaLN statistics are CLUSTER x TB float2, one per rank and row. The split-K partials are
-// double-buffered.
-struct Plan {
-  int Dp, HC, DC, NP1, ldz, ldh, ldm;
-  size_t bars, table, red, zb, scb, xb, mb, hf, mf, st, zs, bytes;
-};
-
-__host__ __device__ inline Plan make_plan(int D, int H) {
-  Plan p;
-  p.Dp = round_up(D, 8 * CLUSTER);       // padded latent
-  p.NP1 = round_up(H / 2, 8 * CLUSTER);  // padded out_fc1 width
-  p.HC = H / CLUSTER;
-  p.DC = p.Dp / CLUSTER;
-  p.ldz = p.Dp + 8;
-  p.ldh = H + 8;
-  p.ldm = (4 * H > p.NP1 ? 4 * H : p.NP1) + 8;
-  p.bars = (size_t)STAGES * SLOT_BYTES;
-  p.table = p.bars + 64;
-  p.red = p.table + MAX_PIECES * 8;
-  p.zb = p.red + 2 * RED_FLOATS * 4;
-  p.scb = p.zb + TB * p.ldz * 2;
-  p.xb = p.scb + TB * p.ldh * 2;
-  p.mb = p.xb + TB * p.ldh * 2;
-  p.hf = p.mb + (size_t)TB * p.ldm * 2;
-  p.mf = p.hf + (size_t)TB * p.HC * 4;
-  p.st = p.mf + (size_t)TB * 2 * p.HC * 4;
-  p.zs = p.st + (size_t)CLUSTER * TB * 8;
-  p.bytes = p.zs + TB * p.DC * 4;
-  return p;
-}
-
-struct Args {
-  const float* z0;       // (B, D)
-  const float* obs_emb;  // (B, H)
-  const float* t_embs;   // (K, H), row s = timestep K-1-s
-  const float* coeffs;   // (K, 8): s1 s2 c1 c2 sd mask 0 0
-  const __nv_bfloat16* wk;  // kernel-order weights
-  const uint2* pieces;   // (CLUSTER, P): (offset in 16-byte units, bytes) of each piece of a step
-  const long long* seed;
-  float* out;            // (B, D)
-  int B, D, H, L, K, P;
-  float mult;
-  int stochastic;
-};
 
 // ---- PTX wrappers ----------------------------------------------------------------------
 
@@ -165,40 +136,174 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-// acc += A (16 x 16) @ B (16 x 8). Each mma sums one k-step's 16 exact products from zero
-// and the float32 sum over k-steps is ordinary round-to-nearest adds, so the tensor cores'
-// own accumulation never carries across k-steps; the products are also independent of
-// each other, not a chain through one accumulator.
-__device__ __forceinline__ void mma_bf16(float (&acc)[4], const uint32_t (&a)[4], uint2 b) {
-  float d0, d1, d2, d3;
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-      : "=f"(d0), "=f"(d1), "=f"(d2), "=f"(d3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y), "f"(0.f));
-  acc[0] += d0, acc[1] += d1, acc[2] += d2, acc[3] += d3;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (lower address)
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += A (16 x 8, tf32) @ B (8 x 8, tf32) on the tensor cores.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- the operand type ------------------------------------------------------------------
+
+// What differs between the float32 and the bfloat16 kernels: the operand copies' element,
+// the elements of one k-step, how a value is written into a copy, and the k-step's product.
+// A k-step is 32 bytes of an operand row in both, and a B fragment 8 bytes a lane.
+template <typename T>
+struct Operand;
+
+template <>
+struct Operand<__nv_bfloat16> {
+  static constexpr int KSTEP = 16;
+  struct A { uint32_t x[4]; };
+  static __device__ __forceinline__ A split(const uint32_t (&a)[4]) {
+    return A{{a[0], a[1], a[2], a[3]}};
+  }
+  // acc += A (16 x 16) @ B (16 x 8): one k-step's 16 exact products summed from zero.
+  static __device__ __forceinline__ void mma(float (&acc)[4], const A& a, uint2 b) {
+    float d0, d1, d2, d3;
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+        : "=f"(d0), "=f"(d1), "=f"(d2), "=f"(d3)
+        : "r"(a.x[0]), "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]), "r"(b.x), "r"(b.y), "f"(0.f));
+    acc[0] += d0, acc[1] += d1, acc[2] += d2, acc[3] += d3;
+  }
+  static __device__ __forceinline__ __nv_bfloat16 from(float v) { return __float2bfloat16_rn(v); }
+  static __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+  }
+  // Write 8 values (16 bytes) at the same shared offset in every CTA of the cluster.
+  static __device__ __forceinline__ void broadcast8(__nv_bfloat16* dst, const float (&v)[8]) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const uint4 w = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                               pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+#pragma unroll
+    for (int q = 0; q < CLUSTER; ++q) *cluster.map_shared_rank(reinterpret_cast<uint4*>(dst), q) = w;
+  }
+};
+
+template <>
+struct Operand<float> {
+  static constexpr int KSTEP = 8;
+  struct A { uint32_t hi[4], lo[4]; };
+  static __device__ __forceinline__ A split(const uint32_t (&a)[4]) {
+    A s;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = __uint_as_float(a[i]);
+      s.hi[i] = to_tf32(x);
+      s.lo[i] = to_tf32(x - __uint_as_float(s.hi[i]));
+    }
+    return s;
+  }
+  // acc += A (16 x 8) @ B (8 x 8) to float32 accuracy (3xTF32), the k-step summed from zero
+  // with the small terms first.
+  static __device__ __forceinline__ void mma(float (&acc)[4], const A& a, uint2 b) {
+    const float b0 = __uint_as_float(b.x), b1 = __uint_as_float(b.y);
+    const uint32_t h0 = to_tf32(b0), h1 = to_tf32(b1);
+    const uint32_t l0 = to_tf32(b0 - __uint_as_float(h0)), l1 = to_tf32(b1 - __uint_as_float(h1));
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(d, a.lo, h0, h1);
+    mma_tf32(d, a.hi, l0, l1);
+    mma_tf32(d, a.hi, h0, h1);
+    acc[0] += d[0], acc[1] += d[1], acc[2] += d[2], acc[3] += d[3];
+  }
+  static __device__ __forceinline__ float from(float v) { return v; }
+  static __device__ __forceinline__ void store2(float* dst, float a, float b) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  }
+  // Write 8 values (32 bytes) at the same shared offset in every CTA of the cluster.
+  static __device__ __forceinline__ void broadcast8(float* dst, const float (&v)[8]) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const float4 w0 = make_float4(v[0], v[1], v[2], v[3]), w1 = make_float4(v[4], v[5], v[6], v[7]);
+#pragma unroll
+    for (int q = 0; q < CLUSTER; ++q) {
+      float4* p = cluster.map_shared_rank(reinterpret_cast<float4*>(dst), q);
+      p[0] = w0;
+      p[1] = w1;
+    }
+  }
+};
+
+// Shared-memory plan (bytes) for operand type T; sweep_smem_bytes in ops/denoise.py mirrors
+// it. Operand copies are T with ROW_PAD bytes of row padding; the residual stream, the
+// modulation and z are the rank's float32 slices; the adaLN statistics are CLUSTER x TB
+// float2, one per rank and row. The split-K partials are double-buffered. Strides (ld*) are
+// in elements of T.
+struct Plan {
+  int Dp, HC, DC, NP1, ldz, ldh, ldm;
+  size_t bars, table, red, zb, scb, xb, mb, hf, mf, st, zs, bytes;
+};
+
+template <typename T>
+__host__ __device__ inline Plan make_plan(int D, int H) {
+  constexpr int E = (int)sizeof(T), PAD = ROW_PAD / E;
+  Plan p;
+  p.Dp = round_up(D, 8 * CLUSTER);       // padded latent
+  p.NP1 = round_up(H / 2, 8 * CLUSTER);  // padded out_fc1 width
+  p.HC = H / CLUSTER;
+  p.DC = p.Dp / CLUSTER;
+  p.ldz = p.Dp + PAD;
+  p.ldh = H + PAD;
+  p.ldm = (4 * H > p.NP1 ? 4 * H : p.NP1) + PAD;
+  p.bars = (size_t)STAGES * SLOT_BYTES;
+  p.table = p.bars + 64;
+  p.red = p.table + MAX_PIECES * 8;
+  p.zb = p.red + 2 * RED_FLOATS * 4;
+  p.scb = p.zb + (size_t)TB * p.ldz * E;
+  p.xb = p.scb + (size_t)TB * p.ldh * E;
+  p.mb = p.xb + (size_t)TB * p.ldh * E;
+  p.hf = p.mb + (size_t)TB * p.ldm * E;
+  p.mf = p.hf + (size_t)TB * p.HC * 4;
+  p.st = p.mf + (size_t)TB * 2 * p.HC * 4;
+  p.zs = p.st + (size_t)CLUSTER * TB * 8;
+  p.bytes = p.zs + TB * p.DC * 4;
+  return p;
+}
+
+struct Args {
+  const float* z0;       // (B, D)
+  const float* obs_emb;  // (B, H)
+  const float* t_embs;   // (K, H), row s = timestep K-1-s
+  const float* coeffs;   // (K, 8): s1 s2 c1 c2 sd mask 0 0
+  const void* wk;        // kernel-order weights (of the operand type) with float32 bias heads
+  const uint2* pieces;   // (CLUSTER, P): (offset in 16-byte units, bytes) of each piece of a step
+  const long long* seed;
+  float* out;            // (B, D)
+  int B, D, H, L, K, P;
+  float mult;
+  int stochastic;
+};
 
 // ---- per-CTA state ---------------------------------------------------------------------
 
 // What a product's epilogue does with its rank's columns (8 at a time, one row):
 //   E_MOD         the modulation of the rank's h-columns, scale | shift, into its mf;
 //   E_STORE_H     h = value, E_ADD_H h += value, into the rank's hf;
-//   E_BCAST(_GELU, _SILU)  the next product's bf16 operand (value, gelu, silu), in every CTA;
-//   E_SCORE       p_sample of the rank's latent columns, then z's bf16 operand, in every CTA.
+//   E_BCAST(_GELU, _SILU)  the next product's operand (value, gelu, silu), in every CTA;
+//   E_SCORE       p_sample of the rank's latent columns, then z's operand, in every CTA.
 enum Epi { E_MOD, E_STORE_H, E_ADD_H, E_BCAST, E_BCAST_GELU, E_BCAST_SILU, E_SCORE };
 
+template <typename T>
 struct Ctx {
   Args a;
   Plan p;
   char* ring;
   uint32_t bars;  // shared address of STAGES mbarriers
   float* red;     // two buffers of RED_FLOATS
-  __nv_bfloat16 *zb, *scb, *xb, *mb;
+  T *zb, *scb, *xb, *mb;
   float *hf, *mf, *zs;
   float2* st;     // adaLN statistics: (row sum, squared deviations) of each rank and row
   const uint2* table;  // this rank's piece table, copied to shared memory
@@ -215,7 +320,8 @@ struct Ctx {
 // Issue the pieces that fit the ring. Called by all threads right after a block barrier
 // that follows the last read of every piece before c.pc (a slot is only read, never
 // written, by the threads, so the barrier alone orders those reads before the copy).
-__device__ __forceinline__ void refill(Ctx& c) {
+template <typename T>
+__device__ __forceinline__ void refill(Ctx<T>& c) {
   if (threadIdx.x != 0) return;
   while (c.issued < c.total && c.issued < c.pc + STAGES) {
     const uint2 e = c.table[c.issued % c.a.P];
@@ -226,14 +332,6 @@ __device__ __forceinline__ void refill(Ctx& c) {
   }
 }
 
-// Write v at the same shared offset in every CTA of the cluster.
-template <typename T>
-__device__ __forceinline__ void broadcast(T* dst, T v) {
-  cg::cluster_group cluster = cg::this_cluster();
-#pragma unroll
-  for (int q = 0; q < CLUSTER; ++q) *cluster.map_shared_rank(dst, q) = v;
-}
-
 __device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
   *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
   *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
@@ -242,9 +340,9 @@ __device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
 // Epilogue of one item: 8 columns [col, col+8) of the rank's slice, row r; v holds the
 // float32 sums with the bias added. `bf` (row stride ld) is the rank's slice of the
 // destination operand buffer for the broadcast kinds.
-template <int E>
-__device__ __forceinline__ void epilogue(Ctx& c, int r, int col, float (&v)[8],
-                                         __nv_bfloat16* bf, int ld) {
+template <typename T, int E>
+__device__ __forceinline__ void epilogue(Ctx<T>& c, int r, int col, float (&v)[8], T* bf,
+                                         int ld) {
   const int HC = c.p.HC;
   if (E == E_MOD) {
     store8(c.mf + r * 2 * HC + col, v);
@@ -283,20 +381,19 @@ __device__ __forceinline__ void epilogue(Ctx& c, int r, int col, float (&v)[8],
     if (E == E_BCAST_GELU) v[k] = gelu_tanh(v[k]);
     if (E == E_BCAST_SILU) v[k] = silu(v[k]);
   }
-  broadcast(reinterpret_cast<uint4*>(bf + r * ld + col),
-            make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
-                       pack_bf16(v[6], v[7])));
+  Operand<T>::broadcast8(bf + r * ld + col, v);
 }
 
-// One product: the rank's NT n-tiles (8 columns each) of A (TB x 16 KS, bf16, shared, row
-// stride lda) @ W + bias, then the epilogue E. Ends without a block barrier: the caller
-// puts a cluster barrier (when peers read what it wrote) or nothing before the next
+// One product: the rank's NT n-tiles (8 columns each) of A (TB x KSTEP KS, shared, row
+// stride lda elements) @ W + bias, then the epilogue E. Ends without a block barrier: the
+// caller puts a cluster barrier (when peers read what it wrote) or nothing before the next
 // product, whose partials go to the other buffer and whose first piece ends in a barrier.
-template <int E>
-__device__ void product(Ctx& c, const __nv_bfloat16* A, int lda, int KS, int NT,
-                        __nv_bfloat16* bf = nullptr, int ld = 0) {
+template <typename T, int E>
+__device__ void product(Ctx<T>& c, const T* A, int lda, int KS, int NT, T* bf = nullptr,
+                        int ld = 0) {
+  using Op = Operand<T>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const uint32_t a_row = smem_addr(A) + (((lane & 15) * lda + (lane >> 4) * 8) * 2);
+  const uint32_t a_row = smem_addr(A) + (lane & 15) * lda * (int)sizeof(T) + (lane >> 4) * 16;
   for (int n0 = 0; n0 < NT; n0 += CHUNK_TILES) {
     const int ntc = min(CHUNK_TILES, NT - n0);
     const int wn_count = ntc >= 8 ? 8 : ntc >= 4 ? 4 : ntc >= 2 ? 2 : 1;
@@ -341,21 +438,24 @@ __device__ void product(Ctx& c, const __nv_bfloat16* A, int lda, int KS, int NT,
           }
         }
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u)
+        for (int u = 0; u < UNROLL; ++u) {
+          const typename Op::A af = Op::split(a[u]);
 #pragma unroll
           for (int i = 0; i < MAX_TILES; ++i)
-            if (wn + i * wn_count < ntc) mma_bf16(acc[i], a[u], b[u][i]);
+            if (wn + i * wn_count < ntc) Op::mma(acc[i], af, b[u][i]);
+        }
       }
       for (; kk < kend; kk += wk_count) {
         uint32_t a[4];
         ldmatrix_x4(a, a_row + kk * 32);
+        const typename Op::A af = Op::split(a);
 #pragma unroll
         for (int i = 0; i < MAX_TILES; ++i) {
           const int nt = wn + i * wn_count;
           if (nt < ntc) {
             const uint2 b = *reinterpret_cast<const uint2*>(
                 w + (size_t)(nt * ksp + (kk - kb)) * FRAG_BYTES);
-            mma_bf16(acc[i], a, b);
+            Op::mma(acc[i], af, b);
           }
         }
       }
@@ -386,13 +486,13 @@ __device__ void product(Ctx& c, const __nv_bfloat16* A, int lda, int KS, int NT,
         v[0] += p0.x, v[1] += p0.y, v[2] += p0.z, v[3] += p0.w;
         v[4] += p1.x, v[5] += p1.y, v[6] += p1.z, v[7] += p1.w;
       }
-      epilogue<E>(c, r, col, v, bf, ld);
+      epilogue<T, E>(c, r, col, v, bf, ld);
     }
   }
 }
 
-// x = LN(h) * (1 + scale) + shift for the rank's h-columns, rounded to bf16 into every
-// CTA's xb. Half-warp r (of warp r / 2) handles row r, 8 columns a lane.
+// x = LN(h) * (1 + scale) + shift for the rank's h-columns, into every CTA's xb (rounded
+// to bf16 in the bf16 kernels). Half-warp r (of warp r / 2) handles row r, 8 columns a lane.
 // Each rank's (row sum, squared deviations from its own mean) go to every CTA; after a
 // cluster barrier the row's mean and variance over all H columns are combined from them
 // (Chan et al.'s pairwise update), as LayerNorm's two passes compute them. Called after a
@@ -401,7 +501,8 @@ __device__ void product(Ctx& c, const __nv_bfloat16* A, int lda, int KS, int NT,
 // writes of it; every read of xb precedes the next adaLN's first barrier.
 constexpr int MAX_HC = 8 * 16;  // one group of 8 columns per lane of a half-warp
 
-__device__ void adaln(Ctx& c, cg::cluster_group& cluster) {
+template <typename T>
+__device__ void adaln(Ctx<T>& c, cg::cluster_group& cluster) {
   const int lane = threadIdx.x & 31, col = 8 * (lane & 15);
   const int r = 2 * (threadIdx.x >> 5) + (lane >> 4);
   const int HC = c.p.HC;
@@ -428,7 +529,11 @@ __device__ void adaln(Ctx& c, cg::cluster_group& cluster) {
   }
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) m2 += __shfl_xor_sync(0xffffffffu, m2, o);
-  if ((lane & 15) == 0) broadcast(c.st + c.rank * TB + r, make_float2(s, m2));
+  if ((lane & 15) == 0) {
+    const float2 stat = make_float2(s, m2);
+#pragma unroll
+    for (int q = 0; q < CLUSTER; ++q) *cluster.map_shared_rank(c.st + c.rank * TB + r, q) = stat;
+  }
   cluster.sync();
   const float H = (float)c.a.H;
   float total = 0.f;
@@ -445,32 +550,30 @@ __device__ void adaln(Ctx& c, cg::cluster_group& cluster) {
   const float rstd = rsqrtf(var / H + LN_EPS);
   if (mine) {
     const float* m = c.mf + r * 2 * HC + col;
-    uint32_t x[4];
+    float x[8];
 #pragma unroll
-    for (int k = 0; k < 8; k += 2)
-      x[k / 2] = pack_bf16((h[k] - mean) * rstd * (1.f + m[k]) + m[HC + k],
-                           (h[k + 1] - mean) * rstd * (1.f + m[k + 1]) + m[HC + k + 1]);
-    broadcast(reinterpret_cast<uint4*>(c.xb + r * c.p.ldh + c.rank * HC + col),
-              make_uint4(x[0], x[1], x[2], x[3]));
+    for (int k = 0; k < 8; ++k) x[k] = (h[k] - mean) * rstd * (1.f + m[k]) + m[HC + k];
+    Operand<T>::broadcast8(c.xb + r * c.p.ldh + c.rank * HC + col, x);
   }
   cluster.sync();
 }
 
-template <int V>  // 1: v1 algebra, 2: v2
-__global__ void __launch_bounds__(THREADS, 1) denoise_sweep_bf16_kernel(Args a) {
+template <typename T, int V>  // V 1: v1 algebra, 2: v2
+__global__ void __launch_bounds__(THREADS, 1) denoise_sweep_cluster_kernel(Args a) {
   extern __shared__ __align__(128) char smem[];
+  constexpr int KSTEP = Operand<T>::KSTEP;
   cg::cluster_group cluster = cg::this_cluster();
-  Ctx c;
+  Ctx<T> c;
   c.a = a;
-  c.p = make_plan(a.D, a.H);
+  c.p = make_plan<T>(a.D, a.H);
   const Plan& p = c.p;
   c.ring = smem;
   c.bars = smem_addr(smem + p.bars);
   c.red = reinterpret_cast<float*>(smem + p.red);
-  c.zb = reinterpret_cast<__nv_bfloat16*>(smem + p.zb);
-  c.scb = reinterpret_cast<__nv_bfloat16*>(smem + p.scb);
-  c.xb = reinterpret_cast<__nv_bfloat16*>(smem + p.xb);
-  c.mb = reinterpret_cast<__nv_bfloat16*>(smem + p.mb);
+  c.zb = reinterpret_cast<T*>(smem + p.zb);
+  c.scb = reinterpret_cast<T*>(smem + p.scb);
+  c.xb = reinterpret_cast<T*>(smem + p.xb);
+  c.mb = reinterpret_cast<T*>(smem + p.mb);
   c.hf = reinterpret_cast<float*>(smem + p.hf);
   c.mf = reinterpret_cast<float*>(smem + p.mf);
   c.st = reinterpret_cast<float2*>(smem + p.st);
@@ -496,15 +599,16 @@ __global__ void __launch_bounds__(THREADS, 1) denoise_sweep_bf16_kernel(Args a) 
   for (int i = threadIdx.x; i < TB * p.Dp; i += THREADS) {
     const int r = i / p.Dp, col = i % p.Dp, row = c.row0 + r;
     const float v = (row < a.B && col < D) ? a.z0[(size_t)row * D + col] : 0.f;
-    c.zb[r * p.ldz + col] = __float2bfloat16_rn(v);
+    c.zb[r * p.ldz + col] = Operand<T>::from(v);
     if (col / DC == c.rank) c.zs[r * DC + col % DC] = v;
   }
   __syncthreads();
   refill(c);
   cluster.sync();  // every CTA of the cluster runs before any DSMEM access
 
-  const int ksh = H / 16, nth = HC / 8, ntm = 2 * HC / 8, ld4 = 4 * H + 8;
-  const int ld1 = p.NP1 + 8, nc1 = p.NP1 / CLUSTER;
+  const int pad = ROW_PAD / (int)sizeof(T);
+  const int ksh = H / KSTEP, nth = HC / 8, ntm = 2 * HC / 8, ld4 = 4 * H + pad;
+  const int ld1 = p.NP1 + pad, nc1 = p.NP1 / CLUSTER;
   for (int s = 0; s < a.K; ++s) {
     c.step = s;
     c.pc0 = s * a.P;
@@ -516,38 +620,37 @@ __global__ void __launch_bounds__(THREADS, 1) denoise_sweep_bf16_kernel(Args a) 
       const int r = i / (H / 2), col = 2 * (i % (H / 2)), row = c.row0 + r;
       const float e0 = row < a.B ? a.obs_emb[(size_t)row * H + col] : 0.f;
       const float e1 = row < a.B ? a.obs_emb[(size_t)row * H + col + 1] : 0.f;
-      *reinterpret_cast<uint32_t*>(c.scb + r * p.ldh + col) =
-          pack_bf16(silu(e0 + te[col]), silu(e1 + te[col + 1]));
+      Operand<T>::store2(c.scb + r * p.ldh + col, silu(e0 + te[col]), silu(e1 + te[col + 1]));
     }
     __syncthreads();
     // hf and mf are the rank's own: a block barrier orders their writes before adaln's
     // reads, and adaln's cluster barriers its reads before the next writes. Every read of
     // mb and zb precedes a cluster barrier that precedes the next write of it by any rank.
-    product<E_STORE_H>(c, c.zb, p.ldz, p.Dp / 16, nth);                  // latent_proj
+    product<T, E_STORE_H>(c, c.zb, p.ldz, p.Dp / KSTEP, nth);           // latent_proj
     for (int l = 0; l < L; ++l) {
-      product<E_MOD>(c, c.scb, p.ldh, ksh, ntm);                         // mod1 / site 2l
+      product<T, E_MOD>(c, c.scb, p.ldh, ksh, ntm);                     // mod1 / site 2l
       __syncthreads();
       adaln(c, cluster);
       if (V == 1) {
-        product<E_BCAST>(c, c.xb, p.ldh, ksh, nth, c.mb + c.rank * HC, p.ldh);  // v_proj
+        product<T, E_BCAST>(c, c.xb, p.ldh, ksh, nth, c.mb + c.rank * HC, p.ldh);  // v_proj
         cluster.sync();
-        product<E_ADD_H>(c, c.mb, p.ldh, ksh, nth);                      // out_proj
+        product<T, E_ADD_H>(c, c.mb, p.ldh, ksh, nth);                  // out_proj
       } else {
-        product<E_ADD_H>(c, c.xb, p.ldh, ksh, nth);                      // x @ (Wv Wo)
+        product<T, E_ADD_H>(c, c.xb, p.ldh, ksh, nth);                  // x @ (Wv Wo)
       }
-      product<E_MOD>(c, c.scb, p.ldh, ksh, ntm);                         // mod2 / site 2l+1
+      product<T, E_MOD>(c, c.scb, p.ldh, ksh, ntm);                     // mod2 / site 2l+1
       __syncthreads();
       adaln(c, cluster);
-      product<E_BCAST_GELU>(c, c.xb, p.ldh, ksh, 4 * nth, c.mb + c.rank * 4 * HC, ld4);
+      product<T, E_BCAST_GELU>(c, c.xb, p.ldh, ksh, 4 * nth, c.mb + c.rank * 4 * HC, ld4);
       cluster.sync();
-      product<E_ADD_H>(c, c.mb, ld4, 4 * H / 16, nth);                   // fc2
+      product<T, E_ADD_H>(c, c.mb, ld4, 4 * H / KSTEP, nth);            // fc2
     }
-    product<E_MOD>(c, c.scb, p.ldh, ksh, ntm);                           // final / site 2L
+    product<T, E_MOD>(c, c.scb, p.ldh, ksh, ntm);                       // final / site 2L
     __syncthreads();
     adaln(c, cluster);
-    product<E_BCAST_SILU>(c, c.xb, p.ldh, ksh, nc1 / 8, c.mb + c.rank * nc1, ld1);
+    product<T, E_BCAST_SILU>(c, c.xb, p.ldh, ksh, nc1 / 8, c.mb + c.rank * nc1, ld1);
     cluster.sync();
-    product<E_SCORE>(c, c.mb, ld1, p.NP1 / 16, DC / 8, c.zb + c.rank * DC, p.ldz);
+    product<T, E_SCORE>(c, c.mb, ld1, p.NP1 / KSTEP, DC / 8, c.zb + c.rank * DC, p.ldz);
     cluster.sync();  // z's operand copy is whole again; after the last step, the final barrier
   }
   for (int i = threadIdx.x; i < TB * DC; i += THREADS) {
@@ -556,7 +659,7 @@ __global__ void __launch_bounds__(THREADS, 1) denoise_sweep_bf16_kernel(Args a) 
   }
 }
 
-template <int V>
+template <typename T, int V>
 cudaLaunchConfig_t config(int B, size_t smem_bytes, cudaStream_t stream,
                           cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
@@ -573,38 +676,38 @@ cudaLaunchConfig_t config(int B, size_t smem_bytes, cudaStream_t stream,
   return cfg;
 }
 
-template <int V>
+template <typename T, int V>
 int prepare(size_t smem_bytes) {
-  return (int)cudaFuncSetAttribute(denoise_sweep_bf16_kernel<V>,
+  return (int)cudaFuncSetAttribute(denoise_sweep_cluster_kernel<T, V>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
 }
 
-template <int V>
+template <typename T, int V>
 int launch(const Args& a, size_t smem_bytes, cudaStream_t stream) {
   if (a.B <= 0 || a.K <= 0 || a.P <= 0 || a.P > MAX_PIECES || a.H % (8 * CLUSTER) != 0 ||
-      a.H / CLUSTER > MAX_HC ||
-      smem_bytes != make_plan(a.D, a.H).bytes)
+      a.H / CLUSTER > MAX_HC || smem_bytes != make_plan<T>(a.D, a.H).bytes)
     return (int)cudaErrorInvalidValue;
-  int err = prepare<V>(smem_bytes);
+  int err = prepare<T, V>(smem_bytes);
   if (err) return err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config<V>(a.B, smem_bytes, stream, attr);
-  cudaLaunchKernelEx(&cfg, denoise_sweep_bf16_kernel<V>, a);
+  const cudaLaunchConfig_t cfg = config<T, V>(a.B, smem_bytes, stream, attr);
+  cudaLaunchKernelEx(&cfg, denoise_sweep_cluster_kernel<T, V>, a);
   return (int)cudaGetLastError();
 }
 
-template <int V>
+template <typename T, int V>
 int max_clusters(size_t smem_bytes, int* count) {
-  int err = prepare<V>(smem_bytes);
+  int err = prepare<T, V>(smem_bytes);
   if (err) return err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config<V>(TB * 132, smem_bytes, nullptr, attr);
-  return (int)cudaOccupancyMaxActiveClusters(count, (void*)denoise_sweep_bf16_kernel<V>, &cfg);
+  const cudaLaunchConfig_t cfg = config<T, V>(TB * 132, smem_bytes, nullptr, attr);
+  return (int)cudaOccupancyMaxActiveClusters(count, (void*)denoise_sweep_cluster_kernel<T, V>,
+                                             &cfg);
 }
 
 Args make_args(const float* z0, const float* obs_emb, const float* t_embs, const float* coeffs,
-               const __nv_bfloat16* wk, const uint2* pieces, const long long* seed, float* out, int B, int D, int H, int L, int K, int P,
-               float mult, int stochastic) {
+               const void* wk, const uint2* pieces, const long long* seed, float* out, int B,
+               int D, int H, int L, int K, int P, float mult, int stochastic) {
   Args a;
   a.z0 = z0, a.obs_emb = obs_emb, a.t_embs = t_embs, a.coeffs = coeffs;
   a.wk = wk, a.pieces = pieces, a.seed = seed, a.out = out;
@@ -615,40 +718,39 @@ Args make_args(const float* z0, const float* obs_emb, const float* t_embs, const
 
 }  // namespace
 
+// Each sweep entry point launches its kernel on `stream` as clusters of CLUSTER CTAs, one
+// cluster per 16 batch rows, and returns cudaGetLastError() after the launch (0 = success).
+// `wk` and `pieces` are the pack's kernel-order weights (biases included) and piece table
+// (CLUSTER x P); smem_bytes must equal the kernel's own plan.
+#define AID_SWEEP(NAME, T, V)                                                                  \
+  int NAME(const float* z0, const float* obs_emb, const float* t_embs, const float* coeffs,   \
+           const void* wk, const uint2* pieces, const long long* seed, float* out, int B,      \
+           int D, int H, int L, int K, int P, float mult, int stochastic, size_t smem_bytes,   \
+           cudaStream_t stream) {                                                             \
+    return launch<T, V>(make_args(z0, obs_emb, t_embs, coeffs, wk, pieces, seed, out, B, D, H, \
+                                  L, K, P, mult, stochastic),                                 \
+                        smem_bytes, stream);                                                  \
+  }
+
 extern "C" {
 
-// Launch the bfloat16 v1 sweep on `stream` as clusters of CLUSTER CTAs, one cluster per 16
-// batch rows. Returns cudaGetLastError() after the launch (0 = success). `wk` and `pieces`
-// are the pack's kernel-order weights (biases included) and piece table (CLUSTER x P);
-// smem_bytes must equal the kernel's own plan.
-int aid_denoise_sweep_bf16(const float* z0, const float* obs_emb, const float* t_embs,
-                           const float* coeffs, const __nv_bfloat16* wk, const uint2* pieces,
-                           const long long* seed, float* out, int B, int D, int H, int L,
-                           int K, int P, float mult, int stochastic, size_t smem_bytes,
-                           cudaStream_t stream) {
-  return launch<1>(make_args(z0, obs_emb, t_embs, coeffs, wk, pieces, seed, out, B, D, H, L,
-                             K, P, mult, stochastic),
-                   smem_bytes, stream);
+AID_SWEEP(aid_denoise_sweep, float, 1)                   // v1, float32 weights
+AID_SWEEP(aid_denoise_sweep_v2, float, 2)                // v2, float32 weights
+AID_SWEEP(aid_denoise_sweep_bf16, __nv_bfloat16, 1)      // v1, bfloat16 weights
+AID_SWEEP(aid_denoise_sweep_v2_bf16, __nv_bfloat16, 2)   // v2, bfloat16 weights
+
+// How many clusters of the kernel (variant 1 or 2; bf16 0 for float32 weights, 1 for
+// bfloat16) with this shared memory can be resident at once on the current device
+// (cudaOccupancyMaxActiveClusters), into *count.
+int aid_sweep_max_clusters(int variant, int bf16, size_t smem_bytes, int* count) {
+  if (bf16)
+    return variant == 1 ? max_clusters<__nv_bfloat16, 1>(smem_bytes, count)
+                        : max_clusters<__nv_bfloat16, 2>(smem_bytes, count);
+  return variant == 1 ? max_clusters<float, 1>(smem_bytes, count)
+                      : max_clusters<float, 2>(smem_bytes, count);
 }
 
-// The same with the v2 algebra (weights packed for "v2").
-int aid_denoise_sweep_v2_bf16(const float* z0, const float* obs_emb, const float* t_embs,
-                              const float* coeffs, const __nv_bfloat16* wk,
-                              const uint2* pieces, const long long* seed, float* out, int B,
-                              int D, int H, int L, int K, int P, float mult, int stochastic,
-                              size_t smem_bytes, cudaStream_t stream) {
-  return launch<2>(make_args(z0, obs_emb, t_embs, coeffs, wk, pieces, seed, out, B, D, H, L,
-                             K, P, mult, stochastic),
-                   smem_bytes, stream);
-}
-
-// How many clusters of the kernel (variant 1 or 2) with this shared memory can be resident
-// at once on the current device (cudaOccupancyMaxActiveClusters), into *count.
-int aid_sweep_bf16_max_clusters(int variant, size_t smem_bytes, int* count) {
-  return variant == 1 ? max_clusters<1>(smem_bytes, count) : max_clusters<2>(smem_bytes, count);
-}
-
-int aid_sweep_bf16_cluster_size() { return CLUSTER; }
+int aid_sweep_cluster_size() { return CLUSTER; }
 
 const char* aid_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

@@ -1,9 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Each source under ``csrc/`` (``denoise_sweep.cu``: v1, float32;
-``denoise_sweep_v2.cu``: v2, float32; ``denoise_sweep_bf16.cu``: v1 and v2,
-bfloat16; all include ``sweep_common.cuh``) has a plain C interface. It is
-compiled with ``nvcc`` for ``sm_90a`` into its own shared library
+Each source under ``csrc/`` (``denoise_sweep_cluster.cu``: the four sweep
+kernels, v1 and v2 with float32 or bfloat16 weights; it includes
+``sweep_common.cuh``) has a plain C interface. It is compiled with ``nvcc`` for ``sm_90a`` into its own shared library
 ``build/aid_torch_kernels/lib<name>.so`` at the repository root, on first
 use, and rebuilt whenever its source, the shared header or the flags change
 (their SHA-256 is kept beside the library). Stale libraries are compiled
@@ -25,11 +24,7 @@ from typing import Dict
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
-SOURCES = {
-    "denoise_sweep": CSRC / "denoise_sweep.cu",
-    "denoise_sweep_v2": CSRC / "denoise_sweep_v2.cu",
-    "denoise_sweep_bf16": CSRC / "denoise_sweep_bf16.cu",
-}
+SOURCES = {"denoise_sweep_cluster": CSRC / "denoise_sweep_cluster.cu"}
 HEADERS = (CSRC / "sweep_common.cuh",)
 BUILD_DIR = _PACKAGE.parent / "build" / "aid_torch_kernels"
 NVCC_FLAGS = [
@@ -99,27 +94,19 @@ def build() -> Dict[str, Path]:
 def load_library(name: str) -> ctypes.CDLL:
     """The built kernel library ``name`` (a key of ``SOURCES``) with its C
     signatures declared."""
-    from .denoise import _TrunkOffsets, _TrunkOffsetsV2
-
     lib = ctypes.CDLL(str(build()[name]))
     p, i = ctypes.c_void_p, ctypes.c_int
-    tail = [i, i, i, i, i, ctypes.c_float, i, ctypes.c_size_t, p]  # B D H L K, mult, stochastic, smem, stream
-    if name == "denoise_sweep":
-        # z0, obs_emb, t_embs, coeffs, weights, biases, offsets, seed, out
-        signatures = {"aid_denoise_sweep": [p, p, p, p, p, p, _TrunkOffsets, p, p] + tail}
-    elif name == "denoise_sweep_v2":
-        # z0, obs_emb, t_embs, coeffs, weights, biases, offsets, seed, scratch, out
-        signatures = {"aid_denoise_sweep_v2": [p, p, p, p, p, p, _TrunkOffsetsV2, p, p, p] + tail}
-    else:
-        # z0, obs_emb, t_embs, coeffs, kernel weights, pieces, seed, out,
-        # B D H L K P, mult, stochastic, smem, stream
-        args = [p] * 8 + [i] * 6 + [ctypes.c_float, i, ctypes.c_size_t, p]
-        signatures = {
-            "aid_denoise_sweep_bf16": args,
-            "aid_denoise_sweep_v2_bf16": args,
-            "aid_sweep_bf16_max_clusters": [i, ctypes.c_size_t, p],
-            "aid_sweep_bf16_cluster_size": [],
-        }
+    # z0, obs_emb, t_embs, coeffs, kernel weights, pieces, seed, out,
+    # B D H L K P, mult, stochastic, smem, stream
+    sweep = [p] * 8 + [i] * 6 + [ctypes.c_float, i, ctypes.c_size_t, p]
+    signatures = {
+        "aid_denoise_sweep": sweep,
+        "aid_denoise_sweep_v2": sweep,
+        "aid_denoise_sweep_bf16": sweep,
+        "aid_denoise_sweep_v2_bf16": sweep,
+        "aid_sweep_max_clusters": [i, i, ctypes.c_size_t, p],  # variant, bf16, smem, count
+        "aid_sweep_cluster_size": [],
+    }
     for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int

@@ -9,24 +9,23 @@ head), the score clip and the p_sample update with in-kernel Gaussian noise.
 
 - ``fused_denoise_sweep`` and ``fused_denoise_sweep_v2`` are the wrappers.
   For a CUDA tensor they launch the kernel of the packed weights' variant
-  and type (``KERNELS``; sources ``csrc/denoise_sweep.cu`` and
-  ``csrc/denoise_sweep_v2.cu`` for float32 weights,
-  ``csrc/denoise_sweep_bf16.cu`` for bfloat16, built on first use by
-  ``ops/_build.py``) or raise; for a CPU tensor they run
-  ``denoise_sweep_reference``. Launches are counted per kernel in
+  and type (``KERNELS``; all four from ``csrc/denoise_sweep_cluster.cu``,
+  built on first use by ``ops/_build.py``) or raise; for a CPU tensor they
+  run ``denoise_sweep_reference``. Launches are counted per kernel in
   ``LAUNCHES``.
+- The kernels run each 16-row tile on a cluster of ``KERNEL_CLUSTER`` CTAs,
+  each owning 1/``KERNEL_CLUSTER`` of every product's output columns, with
+  tensor-core products; they read the weights from a second buffer of the
+  pack in their own order (``kernel_layout``). They take hidden widths that
+  are a multiple of 8 x ``KERNEL_CLUSTER`` (64); the latent and out_fc1's
+  width are padded to that multiple with zero weights.
+- float32 weights: products accurate to float32 (3xTF32 on the card), no
+  rounding anywhere.
 - bfloat16 mode (``compute_dtype="bfloat16"``): the matmul weights (the
   ``*_w`` arrays) are stored in bfloat16, the activation operand of every
   product is rounded to bfloat16, products are exact and sums float32.
   Biases, LayerNorm, silu(cond), the score clip and the p_sample update stay
   float32. This is what the TPU kernels' ``x.astype(w.dtype)`` computes.
-  The bfloat16 kernels run each 16-row tile on a cluster of
-  ``KERNEL_CLUSTER`` CTAs, each owning 1/``KERNEL_CLUSTER`` of every
-  product's output columns, with tensor-core products; they read the
-  weights from a second buffer of the pack in their own order
-  (``kernel_layout``). They take hidden widths that are a multiple of
-  8 x ``KERNEL_CLUSTER`` (64); the latent and out_fc1's width are padded to
-  that multiple with zero weights.
 - The noise is a counter-based Philox4x32-10 followed by Box-Muller, keyed by
   (seed, global batch row) with counter (sweep step, latent column), so a
   draw depends neither on how the batch is tiled nor on the variant.
@@ -46,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,23 +53,25 @@ import torch.nn.functional as F
 from ..core.schedules import DiffusionSchedule
 from ..models.common import LN_EPS
 
-# Batch rows per thread block; must equal TB in csrc/sweep_common.cuh.
+# Batch rows per cluster; must equal TB in csrc/sweep_common.cuh.
 ROWS_PER_BLOCK = 16
 # Dynamic shared memory one block may use on an H100 (227 KB).
 MAX_SMEM_BYTES = 232448
-# The bfloat16 kernels' plan; each must equal its namesake in csrc/denoise_sweep_bf16.cu:
-# CTAs per 16-row tile (CLUSTER), the bytes of one staged piece of weights (SLOT_BYTES),
-# the ring's slots (STAGES), n-tiles of 8 columns per chunk (CHUNK_TILES), entries of a
-# rank's piece table (MAX_PIECES).
+# The kernels' plan; each must equal its namesake in csrc/denoise_sweep_cluster.cu: CTAs
+# per 16-row tile (CLUSTER), the bytes of one staged piece of weights (SLOT_BYTES), the
+# ring's slots (STAGES), n-tiles of 8 columns per chunk (CHUNK_TILES), entries of a rank's
+# piece table (MAX_PIECES), bytes of padding after each operand row (ROW_PAD).
 KERNEL_CLUSTER = 8
 SLOT_BYTES = 32768 + 512
 STAGES = 3
 CHUNK_TILES = 16
-MAX_PIECES = 512
-_FRAG_BYTES = 32 * 8  # one m16n8k16 B fragment of a warp
+MAX_PIECES = 256
+ROW_PAD = 16
+_FRAG_BYTES = 32 * 8  # one B fragment of a warp: m16n8k16 bf16 or m16n8k8 tf32
+# Elements of one mma k-step per weight type (32 bytes of an operand row).
+K_STEP = {torch.bfloat16: 16, torch.float32: 8}
 
-# Packed-buffer order per variant; the kernels' TrunkOffsets / TrunkOffsetsV2
-# list the same fields in the same order.
+# Packed-buffer order per variant.
 PACK_ORDER = {
     "v1": (
         "latent_proj_w", "latent_proj_b",
@@ -85,15 +86,12 @@ PACK_ORDER = {
 }
 
 # kernel name -> (variant, weight type, library, C function)
+_LIBRARY = "denoise_sweep_cluster"
 KERNELS = {
-    "denoise_sweep_v1_f32": ("v1", torch.float32, "denoise_sweep", "aid_denoise_sweep"),
-    "denoise_sweep_v1_bf16": (
-        "v1", torch.bfloat16, "denoise_sweep_bf16", "aid_denoise_sweep_bf16",
-    ),
-    "denoise_sweep_v2_f32": ("v2", torch.float32, "denoise_sweep_v2", "aid_denoise_sweep_v2"),
-    "denoise_sweep_v2_bf16": (
-        "v2", torch.bfloat16, "denoise_sweep_bf16", "aid_denoise_sweep_v2_bf16",
-    ),
+    "denoise_sweep_v1_f32": ("v1", torch.float32, _LIBRARY, "aid_denoise_sweep"),
+    "denoise_sweep_v1_bf16": ("v1", torch.bfloat16, _LIBRARY, "aid_denoise_sweep_bf16"),
+    "denoise_sweep_v2_f32": ("v2", torch.float32, _LIBRARY, "aid_denoise_sweep_v2"),
+    "denoise_sweep_v2_bf16": ("v2", torch.bfloat16, _LIBRARY, "aid_denoise_sweep_v2_bf16"),
 }
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -208,8 +206,8 @@ def extract_trunk_weights_v2(w: Dict[str, torch.Tensor]) -> Dict[str, torch.Tens
 
 
 class KernelLayout(NamedTuple):
-    """The bfloat16 kernels' copy of a pack (``kernel_layout``): ``weights``
-    (bfloat16 words) holds, per product, per cluster rank, per chunk of at
+    """The kernels' copy of a pack (``kernel_layout``): ``weights`` (words of
+    the pack's weight type) holds, per product, per cluster rank, per chunk of at
     most ``CHUNK_TILES`` n-tiles and per piece of k-steps, the rank's columns
     in mma.sync B-fragment order; a chunk's first piece starts with the
     chunk's float32 biases. ``pieces`` (int32, ``(KERNEL_CLUSTER, P, 2)``)
@@ -227,8 +225,8 @@ class PackedTrunk(NamedTuple):
 
     ``offsets[name] = (element offset in its buffer, shape)``; each entry
     starts on a 16-byte boundary. ``output_multiplier`` is a plain float.
-    A bfloat16 pack whose widths the bfloat16 kernels take also carries
-    their ``KernelLayout`` in ``kernel``."""
+    A pack whose widths the kernels take also carries their
+    ``KernelLayout`` in ``kernel``."""
 
     variant: str
     weights: torch.Tensor
@@ -258,7 +256,7 @@ def _round_up(x: int, m: int) -> int:
 
 
 def kernel_products(packed: PackedTrunk) -> List[Tuple[torch.Tensor, Optional[torch.Tensor], bool]]:
-    """The products of one sweep step in the bfloat16 kernels' order, as
+    """The products of one sweep step in the kernels' order, as
     (weight (in, out), bias or None, is a modulation): latent_proj; per
     layer the first modulation, v_proj and out_proj (v1) or the composed vo
     (v2), the second modulation, fc1, fc2; the final modulation, out_fc1,
@@ -309,14 +307,19 @@ def _pieces(n_tiles: int, k_steps: int) -> int:
 
 
 def kernel_layout(packed: PackedTrunk) -> KernelLayout:
-    """The bfloat16 kernels' weight order for ``packed`` (see ``KernelLayout``).
+    """The kernels' weight order for ``packed`` (see ``KernelLayout``).
 
-    B fragment of mma.sync m16n8k16 (row.col): lane = 4 g + t holds
-    W[k0 + 2t + {0, 1, 8, 9}, n0 + g], 8 contiguous bytes; a piece is
-    [n-tile][k-step][lane][4], after the chunk's 8 x n-tiles float32 biases
-    in its first piece. Input widths are padded with zero rows to a multiple
-    of 8 x ``KERNEL_CLUSTER``, as the kernels' operand copies are."""
+    B fragment of mma.sync, 8 contiguous bytes a lane (lane = 4 g + t):
+    bfloat16 (m16n8k16, a k-step of 16) W[k0 + 2t + {0, 1, 8, 9}, n0 + g];
+    float32 (m16n8k8 tf32, a k-step of 8) W[k0 + t + {0, 4}, n0 + g]. A
+    piece is [n-tile][k-step][lane][fragment], after the chunk's 8 x n-tiles
+    float32 biases in its first piece. Input widths are padded with zero rows
+    to a multiple of 8 x ``KERNEL_CLUSTER``, as the kernels' operand copies
+    are."""
     c = KERNEL_CLUSTER
+    dtype = packed.dtype
+    size = torch.finfo(dtype).bits // 8
+    k_step, per_frag = K_STEP[dtype], _FRAG_BYTES // size
     wparts: List[torch.Tensor] = []
     table: List[List[Tuple[int, int]]] = [[] for _ in range(c)]
     cursor = 0
@@ -332,19 +335,23 @@ def kernel_layout(packed: PackedTrunk) -> KernelLayout:
             cols = rank_columns(n, modulation, r).to(w.device)
             wr = wp[:, cols]
             br = bp[cols]
-            n_tiles, k_steps = wr.shape[1] // 8, kp // 16
+            n_tiles, k_steps = wr.shape[1] // 8, kp // k_step
             for n0 in range(0, n_tiles, CHUNK_TILES):
                 ntc = min(CHUNK_TILES, n_tiles - n0)
-                # [k = 16 ks + 8 jhi + 2 t + jlo, n = 8 nt + g] -> [nt, ks, g, t, jhi, jlo]
-                frag = wr[:, 8 * n0 : 8 * (n0 + ntc)].reshape(k_steps, 2, 4, 2, ntc, 8)
-                frag = frag.permute(4, 0, 5, 2, 1, 3)
+                sub = wr[:, 8 * n0 : 8 * (n0 + ntc)]
+                if dtype == torch.bfloat16:
+                    # [k = 16 ks + 8 jhi + 2 t + jlo, n = 8 nt + g] -> [nt, ks, g, t, jhi, jlo]
+                    frag = sub.reshape(k_steps, 2, 4, 2, ntc, 8).permute(4, 0, 5, 2, 1, 3)
+                else:
+                    # [k = 8 ks + 4 j + t, n = 8 nt + g] -> [nt, ks, g, t, j]
+                    frag = sub.reshape(k_steps, 2, 4, ntc, 8).permute(3, 0, 4, 2, 1)
                 pieces = _pieces(ntc, k_steps)
-                frag = frag.reshape(ntc, pieces, k_steps // pieces, 128).transpose(0, 1)
+                frag = frag.reshape(ntc, pieces, k_steps // pieces, per_frag).transpose(0, 1)
                 for q in range(pieces):
                     part = frag[q].reshape(-1)
                     if q == 0:
-                        part = torch.cat([br[8 * n0 : 8 * (n0 + ntc)].view(w.dtype), part])
-                    table[r].append((cursor * 2 // 16, part.numel() * 2))
+                        part = torch.cat([br[8 * n0 : 8 * (n0 + ntc)].view(dtype), part])
+                    table[r].append((cursor * size // 16, part.numel() * size))
                     wparts.append(part)
                     cursor += part.numel()
     return KernelLayout(
@@ -382,7 +389,7 @@ def pack_trunk_weights(
         num_layers=weights["f1_w"].shape[0],
         output_multiplier=float(weights["output_multiplier"].reshape(-1)[0]),
     )
-    if dtype == torch.bfloat16 and packed.hidden_dim % (8 * KERNEL_CLUSTER) == 0:
+    if packed.hidden_dim % (8 * KERNEL_CLUSTER) == 0:
         packed = packed._replace(kernel=kernel_layout(packed))
     return packed
 
@@ -408,62 +415,42 @@ def packed_trunk_weights(
     return packed
 
 
-def sweep_smem_bytes(latent_dim: int, hidden_dim: int, variant: str = "v1",
-                     dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared memory of one kernel block.
-
-    float32 kernels, for TB rows: the latent and score (each padded to a
-    multiple of 4 columns), the residual stream, the normalised input,
-    silu(cond) (H each) and the MLP hidden (4H); v1 also the modulation
-    (2H), which v2 keeps in device scratch. Mirrors ``smem_floats`` in each
-    kernel.
-
-    bfloat16 kernels, per CTA of a cluster, either variant: the weight ring,
-    its barriers, the piece table, two buffers of split-K partials, bf16
-    operand copies of the whole latent (padded to 8 x ``KERNEL_CLUSTER``),
-    silu(cond), the adaLN output and the MLP hidden (rows padded by 8), the
-    rank's float32 slices of the residual stream, of one modulation and of z,
-    and the adaLN statistics (a float2 per rank and row). Mirrors
-    ``make_plan`` in csrc/denoise_sweep_bf16.cu."""
-    tb = ROWS_PER_BLOCK
-    if dtype != torch.bfloat16:
-        d_pad = -(-latent_dim // 4) * 4
-        per_row = 2 * d_pad + (9 if variant == "v1" else 7) * hidden_dim
-        return 4 * tb * per_row
-    c = KERNEL_CLUSTER
+def sweep_smem_bytes(latent_dim: int, hidden_dim: int, dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of one CTA of a kernel's cluster, either variant:
+    the weight ring, its barriers, the piece table, two buffers of split-K
+    partials, operand copies in the weight type of the whole latent (padded
+    to 8 x ``KERNEL_CLUSTER``), silu(cond), the adaLN output and the MLP
+    hidden (rows padded by ``ROW_PAD`` bytes), the rank's float32 slices of
+    the residual stream, of one modulation and of z, and the adaLN
+    statistics (a float2 per rank and row). Mirrors ``make_plan`` in
+    csrc/denoise_sweep_cluster.cu."""
+    tb, c = ROWS_PER_BLOCK, KERNEL_CLUSTER
+    size = torch.finfo(dtype).bits // 8
     d_pad = _round_up(latent_dim, 8 * c)
     out1 = _round_up(hidden_dim // 2, 8 * c)
+    operands = (d_pad, hidden_dim, hidden_dim, max(4 * hidden_dim, out1))
     return (STAGES * SLOT_BYTES + 64 + 8 * MAX_PIECES + 2 * 4 * tb * (8 * CHUNK_TILES + 8)
-            + 2 * tb * (d_pad + 8) + 2 * 2 * tb * (hidden_dim + 8)
-            + 2 * tb * (max(4 * hidden_dim, out1) + 8)
+            + sum(tb * (size * width + ROW_PAD) for width in operands)
             + 4 * tb * (3 * hidden_dim // c + d_pad // c) + 8 * c * tb)
 
 
 def kernel_smem_bytes(latent_dim: int, hidden_dim: int, variant: str, dtype: torch.dtype) -> int:
-    """The shared memory a sweep kernel's block is launched with; raises
-    ValueError for a width its plan cannot take. float32 kernels: hidden_dim
-    a multiple of 8. bfloat16 kernels: hidden_dim a multiple of 8 x
-    ``KERNEL_CLUSTER`` (64), the latent and out_fc1's width padded to that
-    multiple. Both: the plan within ``MAX_SMEM_BYTES``."""
+    """The shared memory a sweep kernel's CTA is launched with; raises
+    ValueError for a width its plan cannot take: hidden_dim a multiple of
+    8 x ``KERNEL_CLUSTER`` (64), the plan within ``MAX_SMEM_BYTES``. The
+    latent and out_fc1's width are padded to that multiple."""
     name = kernel_name(variant, dtype)
-    step = 8 * KERNEL_CLUSTER if dtype == torch.bfloat16 else 8
+    step = 8 * KERNEL_CLUSTER
     if hidden_dim % step:
-        cluster = f" (8 columns x its cluster of {KERNEL_CLUSTER} CTAs)" if step > 8 else ""
-        raise ValueError(f"{name} takes hidden_dim a multiple of {step}{cluster}, got {hidden_dim}")
-    smem = sweep_smem_bytes(latent_dim, hidden_dim, variant, dtype)
+        raise ValueError(f"{name} takes hidden_dim a multiple of {step} (8 columns x its "
+                         f"cluster of {KERNEL_CLUSTER} CTAs), got {hidden_dim}")
+    smem = sweep_smem_bytes(latent_dim, hidden_dim, dtype)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{name} at latent_dim={latent_dim}, hidden_dim={hidden_dim} needs {smem} bytes "
             f"of shared memory per block; the kernel's plan allows {MAX_SMEM_BYTES}"
         )
     return smem
-
-
-def sweep_v2_scratch_floats(batch: int, hidden_dim: int, num_layers: int) -> int:
-    """Device scratch of the v2 kernel: per block, TB rows of all 2L+1
-    modulations (L*4H + 2H floats)."""
-    blocks = -(-batch // ROWS_PER_BLOCK)
-    return blocks * ROWS_PER_BLOCK * (num_layers * 4 + 2) * hidden_dim
 
 
 # ---------------------------------------------------------------------------
@@ -537,13 +524,16 @@ def denoise_sweep_reference(
     num_layers: int,
     deterministic: bool = False,
     noise: Optional[torch.Tensor] = None,
+    matmul: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernels, on any device, for either
     variant and weight type of ``weights``. ``noise`` (K, B, D), when given,
     replaces the Philox draw (for tests that feed both packages the same
     numbers). With bfloat16 weights each product's activation operand is
     rounded to bfloat16 and the product taken in float32 (exact); on the
-    card that needs TF32 off, as the callers set it."""
+    card that needs TF32 off, as the callers set it. ``matmul``, when given,
+    takes every product as ``matmul(x, w)`` of the float32 activation and
+    the weight in its stored type (a timing yardstick's other product)."""
     views = weights.views()
     w = {name: v.float() for name, v in views.items()}
     rounded = weights.dtype != torch.float32
@@ -554,9 +544,12 @@ def denoise_sweep_reference(
     cols = torch.arange(z0.shape[1], device=z0.device)[None, :]
 
     def mm(x, name, l=None, bias=None):
-        if rounded:
-            x = x.to(weights.dtype).float()
-        y = x @ (w[name] if l is None else w[name][l])
+        if matmul is not None:
+            y = matmul(x, views[name] if l is None else views[name][l])
+        else:
+            if rounded:
+                x = x.to(weights.dtype).float()
+            y = x @ (w[name] if l is None else w[name][l])
         if bias is not None:
             y = y + (w[bias] if l is None else w[bias][l])
         return y
@@ -598,14 +591,6 @@ def denoise_sweep_reference(
             z_next = z_next + mask * sd * eps
         z = z_next
     return z
-
-
-class _TrunkOffsets(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_longlong) for name in PACK_ORDER["v1"]]
-
-
-class _TrunkOffsetsV2(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_longlong) for name in PACK_ORDER["v2"]]
 
 
 def _check_args(schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers):
@@ -659,11 +644,14 @@ def _sweep(variant, schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num
     _, _, library, function = KERNELS[name]
     b, d = z0.shape
     h = obs_emb.shape[-1]
-    bf16 = weights.dtype == torch.bfloat16
     smem = kernel_smem_bytes(d, h, variant, weights.dtype)
     for arg, t in (("z0", z0), ("obs_emb", obs_emb), ("t_embs", t_embs)):
         if not t.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
+    layout = weights.kernel
+    if layout is None or layout.pieces.shape[1] > MAX_PIECES:
+        raise ValueError(f"{name}: the pack has no kernel layout of at most {MAX_PIECES} pieces "
+                         "a step")
 
     from ._build import load_library
 
@@ -672,33 +660,13 @@ def _sweep(variant, schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num
     out = torch.empty_like(z0)
     with torch.cuda.device(z0.device):
         stream = torch.cuda.current_stream(z0.device).cuda_stream
-        if bf16:
-            layout = weights.kernel
-            if layout is None or layout.pieces.shape[1] > MAX_PIECES:
-                raise ValueError(f"{name}: the pack has no kernel layout of at most "
-                                 f"{MAX_PIECES} pieces a step")
-            _check_clusters(lib, name, variant, smem, z0.device)
-            err = getattr(lib, function)(
-                z0.data_ptr(), obs_emb.data_ptr(), t_embs.data_ptr(), coeffs.data_ptr(),
-                layout.weights.data_ptr(), layout.pieces.data_ptr(), seed.data_ptr(), out.data_ptr(), b, d, h, num_layers, num_steps,
-                layout.pieces.shape[1], weights.output_multiplier, 0 if deterministic else 1,
-                smem, stream,
-            )
-        else:
-            offsets_type = _TrunkOffsets if variant == "v1" else _TrunkOffsetsV2
-            offsets = offsets_type(*(weights.offsets[k][0] for k in PACK_ORDER[variant]))
-            scratch = []
-            if variant == "v2":
-                scratch = [
-                    torch.empty(sweep_v2_scratch_floats(b, h, num_layers), device=z0.device)
-                ]
-            err = getattr(lib, function)(
-                z0.data_ptr(), obs_emb.data_ptr(), t_embs.data_ptr(), coeffs.data_ptr(),
-                weights.weights.data_ptr(), weights.biases.data_ptr(), offsets, seed.data_ptr(),
-                *(s.data_ptr() for s in scratch), out.data_ptr(),
-                b, d, h, num_layers, num_steps, weights.output_multiplier,
-                0 if deterministic else 1, smem, stream,
-            )
+        _check_clusters(lib, name, variant, weights.dtype, smem, z0.device)
+        err = getattr(lib, function)(
+            z0.data_ptr(), obs_emb.data_ptr(), t_embs.data_ptr(), coeffs.data_ptr(),
+            layout.weights.data_ptr(), layout.pieces.data_ptr(), seed.data_ptr(), out.data_ptr(),
+            b, d, h, num_layers, num_steps, layout.pieces.shape[1], weights.output_multiplier,
+            0 if deterministic else 1, smem, stream,
+        )
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: {lib.aid_cuda_error_string(err).decode()} ({err})"
@@ -711,7 +679,7 @@ def _sweep(variant, schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num
 _CLUSTERS_CHECKED: set = set()
 
 
-def _check_clusters(lib, name, variant, smem, device) -> None:
+def _check_clusters(lib, name, variant, dtype, smem, device) -> None:
     """Before the first launch of a shape: raise unless the library was built
     for ``KERNEL_CLUSTER`` and the card can hold at least one cluster of it
     with ``smem`` bytes per CTA (cudaOccupancyMaxActiveClusters). Never falls
@@ -719,18 +687,28 @@ def _check_clusters(lib, name, variant, smem, device) -> None:
     key = (name, smem, device)
     if key in _CLUSTERS_CHECKED:
         return
-    built = lib.aid_sweep_bf16_cluster_size()
+    built = lib.aid_sweep_cluster_size()
     if built != KERNEL_CLUSTER:
         raise RuntimeError(f"{name} was built for clusters of {built}, not {KERNEL_CLUSTER}")
-    count = ctypes.c_int(0)
-    err = lib.aid_sweep_bf16_max_clusters(1 if variant == "v1" else 2, smem, ctypes.byref(count))
-    if err != 0 or count.value < 1:
+    count = max_active_clusters(lib, variant, dtype, smem)
+    if count < 1:
         raise RuntimeError(
             f"{name}: the card holds no cluster of {KERNEL_CLUSTER} CTAs with {smem} bytes of "
-            f"shared memory each ({lib.aid_cuda_error_string(err).decode()}, "
-            f"{count.value} clusters)"
+            "shared memory each"
         )
     _CLUSTERS_CHECKED.add(key)
+
+
+def max_active_clusters(lib, variant: str, dtype: torch.dtype, smem: int) -> int:
+    """Clusters of the kernel of (variant, weight type) with ``smem`` bytes
+    per CTA that the current card holds at once; raises if the query fails."""
+    count = ctypes.c_int(0)
+    err = lib.aid_sweep_max_clusters(1 if variant == "v1" else 2, int(dtype == torch.bfloat16),
+                                     smem, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
+                           f"{lib.aid_cuda_error_string(err).decode()} ({err})")
+    return count.value
 
 
 def fused_denoise_sweep(

@@ -12,16 +12,19 @@ imports no JAX and nothing of the JAX package.
 
 Phases:
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
-2. build: one ``nvcc`` per source for sm_90a, all started together, with the
-   build seconds and ptxas's register/spill report.
+2. build: one ``nvcc`` per source for sm_90a, all started together (one
+   source, ``csrc/denoise_sweep_cluster.cu``, holds the four kernels), with
+   the build seconds, ptxas's register/spill report and the clusters of 8
+   the card holds at once for each kernel at the two widths.
 3. kernels vs plain version at seeded random weights (every parameter
    normal / sqrt(fan_in), output_multiplier 1.0), each deterministic and
-   stochastic with the same seed: v1-f32 at the flagship, the
+   stochastic with the same seed: v1-f32 at the flagship (B=256 and 1), the
    halfcheetah_state.yaml widths (full and partial sweep) and a ragged
    batch; v1-bf16 and v2-bf16 at the humanoid_state.yaml width at B=256
    (K=50 full; v1 also 25 partial), B=8 (one cluster), B=37 (a ragged
    cluster) and B=512, K=10 (two waves of clusters; the K of
-   humanoid3d_fused.yaml); v2-f32 at the flagship and humanoid widths.
+   humanoid3d_fused.yaml); v2-f32 at the flagship and the humanoid width
+   (B=256 and 8).
 4. main paths, each with every launch count set to 0 just before it and
    read just after; actions finite, (B, A), within [-1, 1]; exactly one
    launch per call of the path's kernel and none of another; eval actions
@@ -35,13 +38,14 @@ Phases:
       ``act_warm`` calls at each batch with a ``reset_mask``;
    d. the same with ``denoiser_kernel="v2"``, v2-bf16.
 5. times: each kernel against its plain version at its main path's shape
-   (CUDA events), v1-f32 also at the humanoid width, the bf16 kernels also
-   at B=8; for each kernel's first row the plain version captured once in
-   a CUDA graph and replayed (``library_ms``: cuBLAS products and PyTorch's
-   elementwise kernels without the host's launch cost, TF32 off; measured
-   here only, the port never calls it); ``act`` latency (host clock,
-   synchronised) at the flagship (batch 1, 256) and the humanoid config
-   (batch 8, 256; eval and collect).
+   (CUDA events), and at the other shapes of the timed list; for every row
+   the plain version captured once in a CUDA graph and replayed
+   (``library_ms``: cuBLAS products and PyTorch's elementwise kernels
+   without the host's launch cost, TF32 off), and for the bf16 rows also
+   that graph with bf16 x bf16 cuBLAS products summed in float32 (a tighter
+   yardstick); both are measured here only, the port never calls them.
+   ``act`` latency (host clock, synchronised) at the flagship (batch 1,
+   256) and the humanoid config (batch 8, 256), eval and collect.
 6. the kernel summary line, the card line, and the result line.
 """
 
@@ -82,6 +86,8 @@ PARITY_SHAPES = [
     # two waves of 16-row clusters; K of examples/configs/humanoid3d_fused.yaml
     ("denoise_sweep_v1_bf16", "humanoid_b512", 512, 64, 256, 6, 50, 10),
     ("denoise_sweep_v2_bf16", "humanoid_b512", 512, 64, 256, 6, 50, 10),
+    ("denoise_sweep_v1_f32", "flagship_b1", 1, 32, 128, 6, 25, 25),
+    ("denoise_sweep_v2_f32", "humanoid_b8", 8, 64, 256, 6, 50, 50),
 ]
 # Kernel vs plain sweep, elementwise |kernel - plain| <= atol + rtol |plain|.
 # float32: another summation order, compounded over up to 100 dependent
@@ -190,6 +196,21 @@ def sweep_inputs(kernel, batch, latent, hidden, layers, schedule_len, steps, see
     return wrapper, (schedule, packed, z0, obs_emb, t_embs, seed_t, steps, layers)
 
 
+def bf16_matmul():
+    """x @ w with x rounded to bf16 and w the stored bf16 weight, as one
+    cuBLAS bf16 x bf16 product summed in float32: with a float32 output
+    where this PyTorch has ``torch.mm(..., out_dtype=)``, else with its
+    bf16 output widened. Returns the product and a note of which."""
+    a = torch.ones((16, 64), device="cuda", dtype=torch.bfloat16)
+    try:
+        torch.mm(a, a.t(), out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as err:
+        return (lambda x, w: torch.mm(x.to(torch.bfloat16), w).float(),
+                f"bf16 output widened ({type(err).__name__})")
+    return (lambda x, w: torch.mm(x.to(torch.bfloat16), w, out_dtype=torch.float32),
+            "float32 output")
+
+
 def host_ms(fn, calls: int) -> list:
     times = []
     for _ in range(calls):
@@ -221,6 +242,8 @@ def main() -> int:
         KERNELS,
         LAUNCHES,
         denoise_sweep_reference,
+        kernel_smem_bytes,
+        max_active_clusters,
     )
 
     dev = torch.device("cuda")
@@ -241,6 +264,12 @@ def main() -> int:
         for line in _build.build_log(name).read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[2 build] ptxas {name}: {line.strip()}")
+    for kernel, (variant, dtype, library, _) in KERNELS.items():
+        for latent, hidden in ((64, 256), (32, 128)):
+            smem = kernel_smem_bytes(latent, hidden, variant, dtype)
+            count = max_active_clusters(_build.load_library(library), variant, dtype, smem)
+            log(f"[2 build] {kernel} D={latent} H={hidden}: {smem} B of shared memory a CTA, "
+                f"{count} clusters at once")
 
     # -- 3. kernels vs plain version ----------------------------------------
     max_abs_err = {name: 0.0 for name in KERNELS}
@@ -386,7 +415,12 @@ def main() -> int:
         ("denoise_sweep_v1_f32", "humanoid_state", hum),
         ("denoise_sweep_v1_bf16", "humanoid_state_b8", dict(hum, batch=8)),
         ("denoise_sweep_v2_bf16", "humanoid_state_b8", dict(hum, batch=8)),
+        ("denoise_sweep_v1_f32", "flagship_b1", dict(flag, batch=1)),
+        ("denoise_sweep_v2_f32", "flagship", flag),
+        ("denoise_sweep_v2_f32", "humanoid_state_b8", dict(hum, batch=8)),
     ]
+    bf16_mm, bf16_mm_note = bf16_matmul()
+    log(f"[5 times] bf16 yardstick products: {bf16_mm_note}")
     summary = {}
     for kernel, label, shape in timed:
         wrapper, args = sweep_inputs(kernel, **shape, seed=7)
@@ -394,18 +428,23 @@ def main() -> int:
             "kernel": lambda: wrapper(*args, deterministic=False),
             "plain": lambda: denoise_sweep_reference(*args, deterministic=False),
         }
-        calls = TIMED_CALLS if label == "flagship" else 10
+        calls = TIMED_CALLS if label.startswith("flagship") else 10
         samples = {name: [] for name in arms}
         for name in arms:
             cuda_ms(arms[name], WARMUP_CALLS)
         for name in ("plain", "kernel", "kernel", "plain"):
             samples[name] += cuda_ms(arms[name], (calls + 1) // 2)
         ms = {name: statistics.median(v) for name, v in samples.items()}
-        first = kernel not in summary
-        if first:  # the yardstick: the plain version as one CUDA graph
-            ms["library"] = graph_ms(lambda: denoise_sweep_reference(*args, deterministic=False),
-                                     calls)
+        # the yardstick: the plain version as one CUDA graph
+        ms["library"] = graph_ms(lambda: denoise_sweep_reference(*args, deterministic=False),
+                                 calls)
         packed, z0, obs_emb, t_embs = args[1], args[2], args[3], args[4]
+        graphs = f"plain as a CUDA graph {ms['library']:.4f} ms"
+        if packed.dtype == torch.bfloat16:
+            ms["library_bf16"] = graph_ms(
+                lambda: denoise_sweep_reference(*args, deterministic=False, matmul=bf16_mm), calls
+            )
+            graphs += f", with bf16 x bf16 products {ms['library_bf16']:.4f} ms"
         b, k = z0.shape[0], args[6]
         weights = sum(
             int(np.prod(shape)) for name, (_, shape) in packed.offsets.items() if name.endswith("_w")
@@ -417,12 +456,11 @@ def main() -> int:
         bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
                  "operations": flops / PEAK_FLOPS[packed.dtype] * 1e3}
         bound_by = max(bound, key=bound.get)
-        graph = f", plain as a CUDA graph {ms['library']:.4f} ms" if first else ""
         log(f"[5 times] {kernel} {label} B={b} K={k}: kernel median {ms['kernel']:.4f} ms, "
-            f"plain {ms['plain']:.4f} ms over {len(samples['kernel'])} calls each (stochastic)"
-            f"{graph}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB, bound "
+            f"plain {ms['plain']:.4f} ms over {len(samples['kernel'])} calls each (stochastic), "
+            f"{graphs}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB, bound "
             f"{bound[bound_by]:.4f} ms ({bound_by}) | {card}")
-        if first:
+        if kernel not in summary:
             summary[kernel] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
                                    bound_ms=bound[bound_by], bound_by=bound_by,
                                    library_ms=ms["library"])
@@ -431,7 +469,7 @@ def main() -> int:
     obs_hum = np.random.default_rng(1).standard_normal((256, HUMANOID_OBS_DIM)).astype(np.float32)
     gen = torch.Generator(device=dev).manual_seed(0)
     for label, agent, obs_all, batches, modes in (
-        ("flagship", flagship, obs_flag, (1, 256), ("eval",)),
+        ("flagship", flagship, obs_flag, (1, 256), ("eval", "collect")),
         ("humanoid_state", humanoid, obs_hum, (8, 256), ("eval", "collect")),
     ):
         for batch in batches:

@@ -11,6 +11,8 @@ held against this plain version on the card, in
 tests/test_torch_kernel_cuda.py and chip_smoke.py.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,6 +40,8 @@ from active_inference_diffusion_torch.ops.denoise import (
     MAX_PIECES,
     MAX_SMEM_BYTES,
     SLOT_BYTES,
+    K_STEP,
+    ROW_PAD,
     STAGES,
     denoise_sweep_reference,
     extract_trunk_weights,
@@ -50,7 +54,6 @@ from active_inference_diffusion_torch.ops.denoise import (
     philox_normal,
     rank_columns,
     sweep_smem_bytes,
-    sweep_v2_scratch_floats,
 )
 from torch_parity import (
     BF16_TOL,
@@ -314,104 +317,126 @@ def test_cpu_wrapper_runs_plain_version_without_counting(cores):
 
 
 def test_shared_memory_plan():
-    """The kernels' per-block plans: TB rows x (2 padded latents + 9 H)
-    float32 for v1, (2 padded latents + 7 H) for v2, whose TB x (L*4H + 2H)
-    modulations live in device scratch. The flagship, halfcheetah_state.yaml
-    and humanoid_state.yaml widths fit 227 KB; hidden 512 does not, and the
-    CUDA wrappers raise for it."""
-    assert sweep_smem_bytes(32, 128) == 4 * 16 * (2 * 32 + 9 * 128)
-    assert sweep_smem_bytes(50, 256) == 4 * 16 * (2 * 52 + 9 * 256)
-    assert sweep_smem_bytes(64, 256) == 155_648 <= MAX_SMEM_BYTES
-    assert sweep_smem_bytes(64, 256, "v2") == 4 * 16 * (2 * 64 + 7 * 256)
-    assert sweep_smem_bytes(128, 512) > MAX_SMEM_BYTES
-    assert sweep_smem_bytes(128, 512, "v2") > MAX_SMEM_BYTES
-    # humanoid width, B=256: 16 blocks x 16 rows x (6*4*256 + 2*256) floats = 6.8 MB
-    assert 4 * sweep_v2_scratch_floats(256, 256, 6) == 6_815_744
-    assert sweep_v2_scratch_floats(37, 128, 6) == 48 * (6 * 4 + 2) * 128
+    """The float32 kernels' plan per CTA of a cluster, either variant: the
+    bfloat16 plan with float32 operand copies (rows padded by 16 bytes, 4
+    floats). At latent 64, hidden 256 (halfcheetah_state.yaml's latent 50
+    pads to 64) it fits the 232,448 B a block may use, with the MLP hidden's
+    copy 65,792 B of it; the flagship fits; hidden 512 does not, and hidden
+    widths that are not a multiple of 64 are refused."""
+    c = KERNEL_CLUSTER
+    fixed = STAGES * SLOT_BYTES + 64 + 8 * MAX_PIECES + 2 * 4 * 16 * (8 * CHUNK_TILES + 8)
+    # operands: latent (64 + 4), silu(cond) and x (256 + 4), MLP hidden (1024 + 4), in
+    # float32; the rank's slices of h, of the modulation and of z; the adaLN statistics
+    activations = 16 * (4 * (68 + 2 * 260 + 1028) + 4 * (256 + 512 + 64) // c + 8 * c)
+    assert 16 * 4 * (1024 + ROW_PAD // 4) == 65_792
+    for variant in ("v1", "v2"):
+        humanoid = kernel_smem_bytes(64, 256, variant, torch.float32)
+        assert humanoid == fixed + activations == 230_464 <= MAX_SMEM_BYTES
+        assert kernel_smem_bytes(50, 256, variant, torch.float32) == humanoid
+        assert kernel_smem_bytes(32, 128, variant, torch.float32) < humanoid
+        with pytest.raises(ValueError, match="shared memory"):
+            kernel_smem_bytes(64, 512, variant, torch.float32)
+        with pytest.raises(ValueError, match="multiple of 64"):
+            kernel_smem_bytes(8, 32, variant, torch.float32)
+    assert sweep_smem_bytes(64, 256) == sweep_smem_bytes(64, 256, torch.float32) == 230_464
 
 
 # ---------------------------------------------------------------------------
-# The bfloat16 kernels' weight layout and shared-memory plan (no JAX)
+# The kernels' weight layout and shared-memory plan (no JAX)
 # ---------------------------------------------------------------------------
 
-# (latent, hidden, layers): a small width the bf16 kernels take (latent padded
-# from 50 to 64) and the humanoid_state.yaml width.
+# (latent, hidden, layers): a small width the kernels take (latent padded from
+# 50 to 64) and the humanoid_state.yaml width.
 LAYOUT_WIDTHS = {"small": (50, 64, 2), "humanoid": (64, 256, 6)}
+# Integer words of each weight type, for comparing bit patterns.
+WORDS = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
 
 
-def bf16_pack(variant, latent, hidden, layers):
+@functools.lru_cache(maxsize=None)
+def seeded_pack(variant, latent, hidden, layers, dtype):
+    """A pack of seeded normal weights, built once per process per arguments."""
     net = LatentScoreNetwork(latent, OBS_DIM, hidden_dim=hidden, num_layers=layers)
     with torch.no_grad():
         gen = torch.Generator().manual_seed(hidden + layers)
         for p in net.parameters():
             p.copy_(torch.randn(p.shape, generator=gen))
-    return packed_trunk_weights(net, variant, torch.bfloat16)
+    return packed_trunk_weights(net, variant, dtype)
 
 
 def unpack_kernel_layout(packed):
     """Plain inverse of the kernel order: per product, the (in, out) matrix
     padded with zeros as the kernels see it, written element by element from
-    the piece table and the B-fragment rule W[16 ks + 2 t + {0, 1, 8, 9}, 8
-    nt + g] = fragment[nt][ks][lane = 4 g + t][0..3], and per product and
-    rank the biases of the rank's columns, from the head of each chunk's
-    first piece."""
+    the piece table and the B-fragment rule W[k_step ks + k_of(t), 8 nt + g]
+    = fragment[nt][ks][lane = 4 g + t][...], with k_of(t) = 2t + {0, 1, 8,
+    9} for bfloat16 (m16n8k16) and t + {0, 4} for float32 (m16n8k8), and per
+    product and rank the biases of the rank's columns, from the head of each
+    chunk's first piece."""
     layout = packed.kernel
-    words = layout.weights.view(torch.int16)
+    word = WORDS[packed.dtype]
+    words = layout.weights.view(word)
+    size = words.element_size()
     table = layout.pieces.tolist()
     lane = torch.arange(32)
     g, t = lane // 4, lane % 4
-    k_of = torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], dim=1)  # (lane, 4)
-    n_of = g[:, None].expand(32, 4)
+    if packed.dtype == torch.bfloat16:
+        k_step, k_of = 16, torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], dim=1)
+    else:
+        k_step, k_of = 8, torch.stack([t, t + 4], dim=1)  # (lane, values a lane)
+    per_lane = k_of.shape[1]
+    n_of = g[:, None].expand(32, per_lane)
     mats, biases, index = [], [], 0
     for w, _, modulation in kernel_products(packed):
         kp = -(-w.shape[0] // 64) * 64
-        out = torch.zeros(kp, max(w.shape[1], -(-w.shape[1] // 64) * 64), dtype=torch.int16)
+        out = torch.zeros(kp, max(w.shape[1], -(-w.shape[1] // 64) * 64), dtype=word)
         rank_biases = []
         for r in range(KERNEL_CLUSTER):
             cols = rank_columns(w.shape[1], modulation, r)
-            k_steps, n_tiles, piece = kp // 16, len(cols) // 8, index
+            k_steps, n_tiles, piece = kp // k_step, len(cols) // 8, index
             bias = []
             for n0 in range(0, n_tiles, CHUNK_TILES):
                 ntc = min(CHUNK_TILES, n_tiles - n0)
                 kb = 0
                 while kb < k_steps:
                     off, nbytes = table[r][piece]
-                    data = words[off * 8 : off * 8 + nbytes // 2]
+                    data = words[off * 16 // size : (off * 16 + nbytes) // size]
+                    head = 32 * ntc // size
                     if kb == 0:  # the chunk's biases, then its fragments
-                        bias.append(data[: 16 * ntc].clone().view(torch.float32))
-                        data = data[16 * ntc :]
-                    ksp = data.numel() // (ntc * 128)
-                    frags = data.view(ntc, ksp, 32, 4)
+                        bias.append(data[:head].clone().view(torch.float32))
+                        data = data[head:]
+                    ksp = data.numel() // (ntc * 32 * per_lane)
+                    frags = data.view(ntc, ksp, 32, per_lane)
                     nt = torch.arange(ntc)[:, None, None, None]
                     kk = torch.arange(ksp)[None, :, None, None]
-                    out[16 * (kb + kk) + k_of, cols[8 * (n0 + nt) + n_of]] = frags
+                    out[k_step * (kb + kk) + k_of, cols[8 * (n0 + nt) + n_of]] = frags
                     kb += ksp
                     piece += 1
             rank_biases.append(torch.cat(bias))
         index = piece
-        mats.append(out.view(torch.bfloat16))
+        mats.append(out.view(packed.dtype))
         biases.append(rank_biases)
     assert index == len(table[0])
     return mats, biases
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("variant", ["v1", "v2"])
 @pytest.mark.parametrize("width", sorted(LAYOUT_WIDTHS))
-def test_kernel_layout_unpacks_to_the_views(variant, width):
-    """The bf16 kernels' weight buffer holds exactly the (in, out) views,
-    bit for bit, and zeros where the kernels pad; each rank's bias heads hold
-    the bias views of its columns, zeros where padded."""
-    packed = bf16_pack(variant, *LAYOUT_WIDTHS[width])
+def test_kernel_layout_unpacks_to_the_views(variant, width, dtype):
+    """The kernels' weight buffer holds exactly the (in, out) views, bit for
+    bit, and zeros where the kernels pad; each rank's bias heads hold the
+    bias views of its columns, zeros where padded."""
+    packed = seeded_pack(variant, *LAYOUT_WIDTHS[width], dtype)
     layout = packed.kernel
-    assert layout.weights.dtype == torch.bfloat16
+    assert layout.weights.dtype == dtype
     assert layout.pieces.shape[0] == KERNEL_CLUSTER and layout.pieces.shape[1] <= MAX_PIECES
     offsets, sizes = layout.pieces[..., 0].long() * 16, layout.pieces[..., 1].long()
     assert bool((sizes % 16 == 0).all()) and int(sizes.max()) <= SLOT_BYTES
-    assert int((offsets + sizes).max()) == 2 * layout.weights.numel()
+    assert int((offsets + sizes).max()) == layout.weights.numel() * layout.weights.element_size()
     mats, biases = unpack_kernel_layout(packed)
     for (w, b, modulation), got, rank_biases in zip(kernel_products(packed), mats, biases):
         k, n = w.shape
-        assert torch.equal(got[:k, :n].view(torch.int16), w.contiguous().view(torch.int16))
+        word = WORDS[dtype]
+        assert torch.equal(got[:k, :n].view(word), w.contiguous().view(word))
         assert not got[k:].float().any() and not got[:, n:].float().any()
         for r in range(KERNEL_CLUSTER):
             cols = rank_columns(n, modulation, r)
@@ -422,12 +447,24 @@ def test_kernel_layout_unpacks_to_the_views(variant, width):
             assert torch.equal(rank_biases[r], want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("width", sorted(LAYOUT_WIDTHS))
-def test_every_output_column_has_one_rank(width):
+def test_every_output_column_has_one_rank(width, dtype):
     """Each product's columns (padded to 8 x KERNEL_CLUSTER) are split over
     the ranks without overlap or gap; a rank's slice is whole n-tiles, and a
-    modulation's rank owns the scale and the shift of the same h-columns."""
-    latent, hidden, _ = LAYOUT_WIDTHS[width]
+    modulation's rank owns the scale and the shift of the same h-columns. In
+    the pack of each weight type, each rank's pieces hold exactly its
+    columns: their biases and one B fragment per (n-tile, k-step)."""
+    latent, hidden, layers = LAYOUT_WIDTHS[width]
+    packed = seeded_pack("v1", latent, hidden, layers, dtype)
+    sizes = packed.kernel.pieces[..., 1].long().sum(dim=1)
+    for r in range(KERNEL_CLUSTER):
+        want = 0
+        for w, _, modulation in kernel_products(packed):
+            n_tiles = len(rank_columns(w.shape[1], modulation, r)) // 8
+            k_steps = -(-w.shape[0] // 64) * 64 // K_STEP[dtype]
+            want += 32 * n_tiles + n_tiles * k_steps * 32 * 8
+        assert int(sizes[r]) == want
     for out, modulation in ((latent, False), (hidden, False), (4 * hidden, False),
                             (hidden // 2, False), (2 * hidden, True)):
         owners = torch.cat([rank_columns(out, modulation, r) for r in range(KERNEL_CLUSTER)])
@@ -445,8 +482,8 @@ def test_bf16_shared_memory_plan():
     """At latent 64, hidden 256 (all three bf16 presets) the ring of
     STAGES x SLOT_BYTES with the activations fits a CTA's 232,448 B, the same
     for v1 and v2 (each holds one modulation slice at a time); hidden 512 does
-    not fit; widths that are not a multiple of 64 are refused, as the float32
-    kernels refuse theirs."""
+    not fit; widths that are not a multiple of 64 are refused, in both weight
+    types."""
     ring = STAGES * SLOT_BYTES
     v1 = kernel_smem_bytes(64, 256, "v1", torch.bfloat16)
     assert ring < v1 == kernel_smem_bytes(64, 256, "v2", torch.bfloat16) <= MAX_SMEM_BYTES
@@ -456,7 +493,7 @@ def test_bf16_shared_memory_plan():
     c = KERNEL_CLUSTER
     activations = 16 * (2 * (72 + 2 * 264 + 1032) + 4 * (256 + 512 + 64) // c + 8 * c)
     assert v1 == ring + 64 + 8 * MAX_PIECES + 2 * 4 * 16 * (8 * CHUNK_TILES + 8) + activations
-    assert v1 == sweep_smem_bytes(64, 256, "v1", torch.bfloat16) == 181_312
+    assert v1 == sweep_smem_bytes(64, 256, torch.bfloat16) == 179_264
     assert kernel_smem_bytes(50, 64, "v2", torch.bfloat16) <= MAX_SMEM_BYTES
     assert kernel_smem_bytes(64, 256, "v1", torch.float32) == sweep_smem_bytes(64, 256)
     for variant in ("v1", "v2"):
@@ -464,11 +501,11 @@ def test_bf16_shared_memory_plan():
             kernel_smem_bytes(64, 512, variant, torch.bfloat16)
         with pytest.raises(ValueError, match="multiple of 64"):
             kernel_smem_bytes(8, 32, variant, torch.bfloat16)
-        with pytest.raises(ValueError, match="multiple of 8"):
+        with pytest.raises(ValueError, match="multiple of 64"):
             kernel_smem_bytes(8, 36, variant, torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
         kernel_smem_bytes(128, 512, "v1", torch.float32)
-    # a bf16 pack at a width the kernels do not take carries no kernel layout
-    assert packed_trunk_weights(
-        LatentScoreNetwork(8, OBS_DIM, hidden_dim=32, num_layers=1), "v1", torch.bfloat16
-    ).kernel is None
+    # a pack at a width the kernels do not take carries no kernel layout
+    net = LatentScoreNetwork(8, OBS_DIM, hidden_dim=32, num_layers=1)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert packed_trunk_weights(net, "v1", dtype).kernel is None

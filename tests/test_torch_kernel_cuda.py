@@ -6,13 +6,14 @@ one. The file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.) Tolerances:
-with float32 weights the kernel and the plain version differ only in
-summation order, rtol 1e-4 / atol 1e-5 at these small widths. With
-bfloat16 weights a one-ulp float32 difference (the tensor cores sum in
-another order) can flip a bfloat16 rounding of an activation, and the flip
-carries through the later steps: rtol 1e-2 / atol 5e-3. The bfloat16
-kernels take hidden widths that are a multiple of 64, so their small shapes
-use hidden 64.
+with float32 weights the kernel and the plain version differ in summation
+order and in 3xTF32's dropped lo x lo term (2^-22 of a product), rtol 1e-4 /
+atol 1e-5 at these small widths and chip_smoke.py's 1e-3 / 1e-4 at the
+flagship and humanoid widths. With bfloat16 weights a one-ulp float32
+difference (the tensor cores sum in another order) can flip a bfloat16
+rounding of an activation, and the flip carries through the later steps:
+rtol 1e-2 / atol 5e-3. The kernels take hidden widths that are a multiple
+of 64, so the small shapes use hidden 64.
 """
 
 import numpy as np
@@ -43,6 +44,9 @@ pytestmark = pytest.mark.cuda
 OBS_DIM = 5
 WRAPPERS = {"v1": fused_denoise_sweep, "v2": fused_denoise_sweep_v2}
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5), torch.bfloat16: dict(rtol=1e-2, atol=5e-3)}
+# chip_smoke.py's SWEEP_TOL for float32 at the flagship and humanoid widths: the same
+# differences compounded over up to 50 dependent steps of 6 blocks.
+F32_WIDE_TOL = dict(rtol=1e-3, atol=1e-4)
 
 
 @pytest.fixture
@@ -80,7 +84,7 @@ def sweep_args(device, batch, latent, hidden, layers, steps, seed=0, variant="v1
 
 # (batch, latent, hidden, layers): the parity tests' widths, a ragged batch,
 # and a latent that is not a multiple of 4 (padded rows, matmul tail).
-@pytest.mark.parametrize("shape", [(8, 8, 32, 2), (37, 8, 32, 2), (20, 50, 64, 1)])
+@pytest.mark.parametrize("shape", [(8, 8, 64, 2), (37, 8, 64, 2), (20, 50, 64, 1)])
 @pytest.mark.parametrize("deterministic", [True, False])
 def test_kernel_matches_plain_version(cuda, shape, deterministic):
     args = sweep_args(cuda, *shape, steps=5)
@@ -100,8 +104,7 @@ def test_kernel_matches_plain_version(cuda, shape, deterministic):
 @pytest.mark.parametrize("shape", [(8, 8, 32, 2), (37, 50, 64, 2)], ids=["tiny", "ragged"])
 @pytest.mark.parametrize("deterministic", [True, False], ids=["det", "sto"])
 def test_kernel_variants_match_plain_version(cuda, variant, dtype, shape, deterministic):
-    if dtype == torch.bfloat16:  # the bf16 kernels' hidden width: a multiple of 64
-        shape = shape[:2] + (max(shape[2], 64),) + shape[3:]
+    shape = shape[:2] + (max(shape[2], 64),) + shape[3:]  # the kernels' hidden: a multiple of 64
     args = sweep_args(cuda, *shape, steps=5, variant=variant, dtype=dtype)
     name = kernel_name(variant, dtype)
     before = dict(LAUNCHES)
@@ -115,9 +118,9 @@ def test_kernel_variants_match_plain_version(cuda, variant, dtype, shape, determ
 def test_v2_kernel_matches_v1_kernel(cuda):
     """float32 v1 and v2 kernels draw the same noise: the stochastic sweeps
     agree up to the reassociation of Wv @ Wo."""
-    v1 = fused_denoise_sweep(*sweep_args(cuda, 37, 8, 32, 2, steps=5), deterministic=False)
+    v1 = fused_denoise_sweep(*sweep_args(cuda, 37, 8, 64, 2, steps=5), deterministic=False)
     v2 = fused_denoise_sweep_v2(
-        *sweep_args(cuda, 37, 8, 32, 2, steps=5, variant="v2"), deterministic=False
+        *sweep_args(cuda, 37, 8, 64, 2, steps=5, variant="v2"), deterministic=False
     )
     np.testing.assert_allclose(v2.cpu().numpy(), v1.cpu().numpy(), rtol=2e-4, atol=2e-5)
 
@@ -155,7 +158,7 @@ def test_kernel_raises_beyond_its_shared_memory_plan(cuda):
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    args = list(sweep_args(cuda, 8, 8, 32, 2, steps=5))
+    args = list(sweep_args(cuda, 8, 8, 64, 2, steps=5))
     strided = list(args)
     strided[2] = torch.randn(8, 16, device=cuda)[:, ::2]  # non-contiguous z0
     with pytest.raises(ValueError, match="contiguous"):
@@ -230,3 +233,45 @@ def test_bf16_kernels_raise_on_an_unsupported_width(cuda):
         args = sweep_args(cuda, 8, 8, 32, 2, steps=5, variant=variant, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match=f"multiple of {8 * KERNEL_CLUSTER}"):
             WRAPPERS[variant](*args, deterministic=True)
+
+
+def _wide_sweep(cuda, variant, batch, latent, hidden, schedule_len, steps, deterministic):
+    """A float32 sweep at a preset's width (6 blocks), output_multiplier 1, as
+    chip_smoke.py drives it: one launch, held against the plain version."""
+    args = list(sweep_args(cuda, batch, latent, hidden, 6, steps=steps, seed=batch,
+                           variant=variant))
+    args[0] = make_schedule(schedule_len, "cosine", device=cuda)
+    args[1] = args[1]._replace(output_multiplier=1.0)
+    name = kernel_name(variant, torch.float32)
+    before = dict(LAUNCHES)
+    got = WRAPPERS[variant](*args, deterministic=deterministic)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**before, name: before[name] + 1}
+    want = denoise_sweep_reference(*args, deterministic=deterministic)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **F32_WIDE_TOL)
+
+
+# The humanoid_state.yaml width at a few steps of its 50-step schedule: one
+# cluster (B=1, 8), a ragged cluster (37), 16 clusters (256) and two waves (512).
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+@pytest.mark.parametrize("batch", [1, 8, 37, 256, 512])
+@pytest.mark.parametrize("deterministic", [True, False], ids=["det", "sto"])
+def test_f32_kernels_at_the_humanoid_width(cuda, variant, batch, deterministic):
+    _wide_sweep(cuda, variant, batch, 64, 256, 50, 5, deterministic)
+
+
+# The flagship width (latent 32, hidden 128), the full 25-step sweep, at the
+# serving batch and the batched one.
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+@pytest.mark.parametrize("batch", [1, 256])
+@pytest.mark.parametrize("deterministic", [True, False], ids=["det", "sto"])
+def test_f32_kernels_at_the_flagship_width(cuda, variant, batch, deterministic):
+    _wide_sweep(cuda, variant, batch, 32, 128, 25, 25, deterministic)
+
+
+def test_f32_kernels_raise_on_an_unsupported_width(cuda):
+    for variant in ("v1", "v2"):
+        for hidden in (32, 96):
+            args = sweep_args(cuda, 8, 8, hidden, 2, steps=5, variant=variant)
+            with pytest.raises(ValueError, match=f"multiple of {8 * KERNEL_CLUSTER}"):
+                WRAPPERS[variant](*args, deterministic=True)
