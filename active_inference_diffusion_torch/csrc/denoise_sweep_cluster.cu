@@ -21,8 +21,8 @@
 //   written; products are bf16 x bf16 (exact) on mma.sync m16n8k16, summed in float32.
 // - float32: nothing is rounded; products are accurate to float32 by 3xTF32 on mma.sync
 //   m16n8k8: each operand x splits into hi = tf32(x) and lo = tf32(x - hi) in registers
-//   (the weights from their stored float32, never stored split), and a k-step sums
-//   a_lo b_hi + a_hi b_lo + a_hi b_hi; the dropped a_lo b_lo is 2^-22 of the product.
+//   (the weights from their stored float32, never stored split; split_tf32), and a k-step
+//   sums a_lo b_hi + a_hi b_lo + a_hi b_hi; the dropped a_lo b_lo is 2^-22 of the product.
 // - both: each k-step's mma sums from zero and the k-steps are added in float32, so the
 //   tensor cores' own accumulation never carries across k-steps. Biases, LayerNorm (eps
 //   1e-6, no affine), silu(cond), the +-10 clip x output_multiplier and the p_sample update
@@ -141,10 +141,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+// x = hi + lo for 3xTF32, in integer and float adds rather than cvt.rna.tf32 (a
+// conversion, at a fraction of the add rate): hi is x rounded to tf32's 10 mantissa bits
+// (half away from zero: add half an ulp, clear the 13 low bits); lo = x - hi is exact in
+// float32 and goes to the tensor cores as it is, which read the top 19 bits of a tf32
+// operand, so lo is truncated to tf32 there (2^-11 of lo, at most 2^-22 of x).
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
 }
 
 // d += A (16 x 8, tf32) @ B (8 x 8, tf32) on the tensor cores.
@@ -201,19 +205,15 @@ struct Operand<float> {
   static __device__ __forceinline__ A split(const uint32_t (&a)[4]) {
     A s;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float x = __uint_as_float(a[i]);
-      s.hi[i] = to_tf32(x);
-      s.lo[i] = to_tf32(x - __uint_as_float(s.hi[i]));
-    }
+    for (int i = 0; i < 4; ++i) split_tf32(a[i], s.hi[i], s.lo[i]);
     return s;
   }
   // acc += A (16 x 8) @ B (8 x 8) to float32 accuracy (3xTF32), the k-step summed from zero
   // with the small terms first.
   static __device__ __forceinline__ void mma(float (&acc)[4], const A& a, uint2 b) {
-    const float b0 = __uint_as_float(b.x), b1 = __uint_as_float(b.y);
-    const uint32_t h0 = to_tf32(b0), h1 = to_tf32(b1);
-    const uint32_t l0 = to_tf32(b0 - __uint_as_float(h0)), l1 = to_tf32(b1 - __uint_as_float(h1));
+    uint32_t h0, h1, l0, l1;
+    split_tf32(b.x, h0, l0);
+    split_tf32(b.y, h1, l1);
     float d[4] = {0.f, 0.f, 0.f, 0.f};
     mma_tf32(d, a.lo, h0, h1);
     mma_tf32(d, a.hi, l0, l1);
