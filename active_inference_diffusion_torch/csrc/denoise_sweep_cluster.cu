@@ -208,17 +208,19 @@ struct Operand<float> {
     for (int i = 0; i < 4; ++i) split_tf32(a[i], s.hi[i], s.lo[i]);
     return s;
   }
-  // acc += A (16 x 8) @ B (8 x 8) to float32 accuracy (3xTF32), the k-step summed from zero
-  // with the small terms first.
+  // acc += A (16 x 8) @ B (8 x 8) to float32 accuracy (3xTF32), the k-step summed from
+  // zero: the two small terms in one accumulator, the large one in another, so the three
+  // mma form chains of two and one, not of three.
   static __device__ __forceinline__ void mma(float (&acc)[4], const A& a, uint2 b) {
     uint32_t h0, h1, l0, l1;
     split_tf32(b.x, h0, l0);
     split_tf32(b.y, h1, l1);
-    float d[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_tf32(d, a.lo, h0, h1);
-    mma_tf32(d, a.hi, l0, l1);
-    mma_tf32(d, a.hi, h0, h1);
-    acc[0] += d[0], acc[1] += d[1], acc[2] += d[2], acc[3] += d[3];
+    float big[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(small, a.lo, h0, h1);
+    mma_tf32(small, a.hi, l0, l1);
+    mma_tf32(big, a.hi, h0, h1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] += big[i] + small[i];
   }
   static __device__ __forceinline__ float from(float v) { return v; }
   static __device__ __forceinline__ void store2(float* dst, float a, float b) {
