@@ -20,9 +20,9 @@
 //   gelu MLP hidden and the silu out_fc1 output) is rounded to bfloat16 once, where it is
 //   written; products are bf16 x bf16 (exact) on mma.sync m16n8k16, summed in float32.
 // - float32: nothing is rounded; products are accurate to float32 by 3xTF32 on mma.sync
-//   m16n8k8: each operand x splits into hi = tf32(x) and lo = tf32(x - hi) in registers
-//   (the weights from their stored float32, never stored split; split_tf32), and a k-step
-//   sums a_lo b_hi + a_hi b_lo + a_hi b_hi; the dropped a_lo b_lo is 2^-22 of the product.
+//   m16n8k8: each operand x splits into hi = tf32(x) and lo = x - hi in registers (the
+//   weights from their stored float32, never stored split; split_tf32), and a k-step sums
+//   a_lo b_hi + a_hi b_lo + a_hi b_hi; the dropped a_lo b_lo is 2^-22 of the product.
 // - both: each k-step's mma sums from zero and the k-steps are added in float32, so the
 //   tensor cores' own accumulation never carries across k-steps. Biases, LayerNorm (eps
 //   1e-6, no affine), silu(cond), the +-10 clip x output_multiplier and the p_sample update

@@ -54,7 +54,7 @@ from ..core.schedules import DiffusionSchedule
 from ..models.common import LN_EPS
 
 # Batch rows per cluster; must equal TB in csrc/sweep_common.cuh.
-ROWS_PER_BLOCK = 16
+ROWS_PER_CLUSTER = 16
 # Dynamic shared memory one block may use on an H100 (227 KB).
 MAX_SMEM_BYTES = 232448
 # The kernels' plan; each must equal its namesake in csrc/denoise_sweep_cluster.cu: CTAs
@@ -424,7 +424,7 @@ def sweep_smem_bytes(latent_dim: int, hidden_dim: int, dtype: torch.dtype = torc
     the residual stream, of one modulation and of z, and the adaLN
     statistics (a float2 per rank and row). Mirrors ``make_plan`` in
     csrc/denoise_sweep_cluster.cu."""
-    tb, c = ROWS_PER_BLOCK, KERNEL_CLUSTER
+    tb, c = ROWS_PER_CLUSTER, KERNEL_CLUSTER
     size = torch.finfo(dtype).bits // 8
     d_pad = _round_up(latent_dim, 8 * c)
     out1 = _round_up(hidden_dim // 2, 8 * c)
