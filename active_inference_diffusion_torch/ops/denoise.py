@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -524,16 +524,13 @@ def denoise_sweep_reference(
     num_layers: int,
     deterministic: bool = False,
     noise: Optional[torch.Tensor] = None,
-    matmul: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernels, on any device, for either
     variant and weight type of ``weights``. ``noise`` (K, B, D), when given,
     replaces the Philox draw (for tests that feed both packages the same
     numbers). With bfloat16 weights each product's activation operand is
     rounded to bfloat16 and the product taken in float32 (exact); on the
-    card that needs TF32 off, as the callers set it. ``matmul``, when given,
-    takes every product as ``matmul(x, w)`` of the float32 activation and
-    the weight in its stored type (a timing yardstick's other product)."""
+    card that needs TF32 off, as the callers set it."""
     views = weights.views()
     w = {name: v.float() for name, v in views.items()}
     rounded = weights.dtype != torch.float32
@@ -544,12 +541,9 @@ def denoise_sweep_reference(
     cols = torch.arange(z0.shape[1], device=z0.device)[None, :]
 
     def mm(x, name, l=None, bias=None):
-        if matmul is not None:
-            y = matmul(x, views[name] if l is None else views[name][l])
-        else:
-            if rounded:
-                x = x.to(weights.dtype).float()
-            y = x @ (w[name] if l is None else w[name][l])
+        if rounded:
+            x = x.to(weights.dtype).float()
+        y = x @ (w[name] if l is None else w[name][l])
         if bias is not None:
             y = y + (w[bias] if l is None else w[bias][l])
         return y

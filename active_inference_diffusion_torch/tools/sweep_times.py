@@ -2,7 +2,7 @@
 
     python active_inference_diffusion_torch/tools/sweep_times.py [--tree DIR]
         [--width humanoid|flagship] [--kernels ...] [--batches 8 256] [--calls 10]
-        [--label TEXT]
+        [--label TEXT] [--parity]
 
 It takes ``chip_smoke.py``'s seeded inputs, tolerances and timer from the
 checkout it times: this one, or ``--tree DIR``, another checkout of the
@@ -13,7 +13,11 @@ version, then times stochastic sweeps with CUDA events (median of
 ``--calls`` after warm-up), with the full sweep of the width's schedule.
 One JSON object per line on standard output, each with the card's name and
 power limit. To compare two trees, run it for each, in turns (parent,
-change, change, parent), on the same card. Needs a CUDA device.
+change, change, parent), on the same card. With ``--parity`` it times
+nothing and holds the kernels at chip_smoke.py's parity rows instead (its
+``parity_rows``: each row's seed, full sweeps), one line per sweep with
+max |err| and err/tol, without stopping at a row over its tolerance.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,16 +44,22 @@ def main() -> int:
     parser.add_argument("--batches", nargs="+", type=int, default=[8, 256])
     parser.add_argument("--calls", type=int, default=10)
     parser.add_argument("--label", default="")
+    parser.add_argument("--parity", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("sweep_times needs a CUDA device")
     sys.path.insert(0, str(args.tree.resolve()))
     from active_inference_diffusion_torch.ops.denoise import KERNELS, denoise_sweep_reference
-    from chip_smoke import SWEEP_TOL, WARMUP_CALLS, cuda_ms, nvidia_smi, sweep_inputs
+    from chip_smoke import SWEEP_TOL, WARMUP_CALLS, cuda_ms, nvidia_smi, parity_rows, sweep_inputs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()
+    if args.parity:
+        for row in parity_rows(args.kernels):
+            print(json.dumps(dict(label=args.label, tree=str(args.tree), **row, card=card)),
+                  flush=True)
+        return 0
     width = dict(WIDTHS[args.width])
     steps = width.pop("steps")
     for kernel in args.kernels or sorted(KERNELS):

@@ -7,13 +7,13 @@ one. The file imports no JAX, so it runs on a machine without it:
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.) Tolerances:
 with float32 weights the kernel and the plain version differ in summation
-order and in 3xTF32's dropped lo x lo term (2^-22 of a product), rtol 1e-4 /
-atol 1e-5 at these small widths and chip_smoke.py's 1e-3 / 1e-4 at the
-flagship and humanoid widths. With bfloat16 weights a one-ulp float32
-difference (the tensor cores sum in another order) can flip a bfloat16
-rounding of an activation, and the flip carries through the later steps:
-rtol 1e-2 / atol 5e-3. The kernels take hidden widths that are a multiple
-of 64, so the small shapes use hidden 64.
+order and in 3xTF32's dropped lo x lo term (2^-22 of a product): rtol 1e-4 /
+atol 1e-5 at every width, which the kernels built with one TF32 product
+(hi x hi) fail in every float32 case (PERF.md). With bfloat16 weights a
+one-ulp float32 difference (the tensor cores sum in another order) can flip
+a bfloat16 rounding of an activation, and the flip carries through the
+later steps: rtol 1e-2 / atol 5e-3. The kernels take hidden widths that are
+a multiple of 64, so the small shapes use hidden 64.
 """
 
 import numpy as np
@@ -44,9 +44,6 @@ pytestmark = pytest.mark.cuda
 OBS_DIM = 5
 WRAPPERS = {"v1": fused_denoise_sweep, "v2": fused_denoise_sweep_v2}
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5), torch.bfloat16: dict(rtol=1e-2, atol=5e-3)}
-# chip_smoke.py's SWEEP_TOL for float32 at the flagship and humanoid widths: the same
-# differences compounded over up to 50 dependent steps of 6 blocks.
-F32_WIDE_TOL = dict(rtol=1e-3, atol=1e-4)
 
 
 @pytest.fixture
@@ -248,7 +245,7 @@ def _wide_sweep(cuda, variant, batch, latent, hidden, schedule_len, steps, deter
     torch.cuda.synchronize()
     assert LAUNCHES == {**before, name: before[name] + 1}
     want = denoise_sweep_reference(*args, deterministic=deterministic)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **F32_WIDE_TOL)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL[torch.float32])
 
 
 # The humanoid_state.yaml width at a few steps of its 50-step schedule: one
