@@ -1,24 +1,173 @@
-"""Host-side agent shell.
+"""Host-side agent shell, optimizer partitions, reward normalisation and the
+train state.
 
-Counterpart of ``active_inference_diffusion_tpu/agents/base.py:145-176``
-(``BaseAgent``) without the optimizers and the train state, which come with
-the training slice.
+Counterpart of ``active_inference_diffusion_tpu/agents/base.py``:
+``RewardNormState`` (:26-57), ``AgentTrainState`` (:60-88),
+``make_optimizers`` (:90-132), ``subset`` (:135) and ``BaseAgent``
+(:145-276). The parameters live in the core's modules, which the train
+step updates in place; the train state holds everything else.
+``train_epoch`` and the device replay ring come with the next slice.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 from ..bridge import load_jax_params
 from ..configs.config import ActiveInferenceConfig, TrainingConfig
-from ..core.active_inference import DiffusionActiveInference
+from ..core.active_inference import GROUP_MODULES, DiffusionActiveInference
+from ..core.time_sampler import init_time_importance
+from ..models.ema import init_ema
+
+
+@dataclass
+class RewardNormState:
+    """Welford-merged running mean and (population) variance of rewards, as
+    0-d float32 tensors."""
+
+    mean: torch.Tensor
+    var: torch.Tensor
+    count: torch.Tensor
+
+    @classmethod
+    def create(cls, device=None, epsilon: float = 1e-4) -> "RewardNormState":
+        def scalar(v):
+            return torch.tensor(v, dtype=torch.float32, device=device)
+
+        return cls(mean=scalar(0.0), var=scalar(1.0), count=scalar(epsilon))
+
+    def update(self, x: torch.Tensor) -> "RewardNormState":
+        batch_mean = torch.mean(x)
+        batch_var = torch.var(x, correction=0)
+        batch_count = float(x.shape[0])
+        delta = batch_mean - self.mean
+        tot = self.count + batch_count
+        new_mean = self.mean + delta * batch_count / tot
+        m2 = self.var * self.count + batch_var * batch_count + delta**2 * self.count * batch_count / tot
+        return RewardNormState(mean=new_mean, var=m2 / tot, count=tot)
+
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        return (x - self.mean) / torch.sqrt(self.var + 1e-8)
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+    """optax's rule: gradients whose global norm reaches ``max_norm`` are
+    scaled by max_norm / norm; others pass unchanged (no epsilon, unlike
+    ``torch.nn.utils.clip_grad_norm_``). Multi-tensor kernels, no host
+    sync."""
+    grads = list(grads)
+    norm = torch.nn.utils.get_total_norm(grads)
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    return list(torch._foreach_mul(grads, scale))
+
+
+class PartitionOptimizer:
+    """``optax.chain(clip_by_global_norm(clip), adamw(lr, weight_decay))``
+    over one partition's parameters. AdamW is ``torch.optim.AdamW``, which
+    takes optax's rule: eps outside the square root, no eps_root, the
+    decoupled decay lr * wd * p taken with the update. ``schedule`` (update
+    count -> learning rate) replaces the constant rate."""
+
+    def __init__(self, params: Sequence[nn.Parameter], lr: float, weight_decay: float,
+                 clip: float, schedule: Optional[Callable[[int], float]] = None):
+        self.params = list(params)
+        self.clip = clip
+        self.schedule = schedule
+        self.count = 0
+        self.adamw = torch.optim.AdamW(
+            self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
+        )
+
+    def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
+        """One update from the partition's gradients (None for a parameter
+        the loss does not reach: a zero gradient, as JAX gives)."""
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        for p, g in zip(self.params, clip_by_global_norm(grads, self.clip)):
+            p.grad = g
+        if self.schedule is not None:
+            for group in self.adamw.param_groups:
+                group["lr"] = self.schedule(self.count)
+        self.adamw.step()
+        self.adamw.zero_grad(set_to_none=True)
+        self.count += 1
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float):
+    """optax's ``cosine_decay_schedule``."""
+
+    def schedule(count: int) -> float:
+        frac = min(count, decay_steps) / decay_steps
+        return init_value * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * frac)) + alpha)
+
+    return schedule
+
+
+def subset(core: DiffusionActiveInference, groups: Sequence[str]) -> List[nn.Parameter]:
+    """The parameters of ``groups`` (JAX group names), group by group."""
+    return [p for g in groups for p in getattr(core, GROUP_MODULES[g]).parameters()]
+
+
+def make_optimizers(
+    config: ActiveInferenceConfig, partitions: Mapping[str, List[str]],
+    core: DiffusionActiveInference,
+) -> Dict[str, PartitionOptimizer]:
+    """One optimizer per partition, each clipped by its own global norm:
+    weight decay 1e-5 for score, policy and epistemic, 0 for the others;
+    the epistemic rate is a tenth; the policy's is scaled by
+    ``policy_lr_scale`` and, with ``policy_lr_decay_steps``, decays along a
+    cosine."""
+    lr, clip = config.learning_rate, config.gradient_clip
+    opts = {}
+    for name, groups in partitions.items():
+        params = subset(core, groups)
+        if name == "score":
+            opts[name] = PartitionOptimizer(params, lr, 1e-5, clip)
+        elif name == "policy":
+            plr = lr * config.policy_lr_scale
+            schedule = None
+            if config.policy_lr_decay_steps:
+                schedule = cosine_decay_schedule(
+                    plr, config.policy_lr_decay_steps, config.policy_lr_final_scale
+                )
+            opts[name] = PartitionOptimizer(params, plr, 1e-5, clip, schedule)
+        elif name == "epistemic":
+            opts[name] = PartitionOptimizer(params, lr * 0.1, 1e-5, clip)
+        else:  # value, model
+            opts[name] = PartitionOptimizer(params, lr, 0.0, clip)
+    return opts
+
+
+@dataclass
+class AgentTrainState:
+    """All training state but the parameters (which the core's modules
+    hold): the host step count, the optimizers with their moments, the EMA
+    shadow of the score network, the time-importance weights, the MINE
+    running mean, the reward normaliser, the preference temperature and the
+    generator every draw of a step comes from. The imagined-lambda critic,
+    its return scale and entropy coefficient and the EMA policy come with
+    their slice."""
+
+    step: int
+    optimizers: Dict[str, PartitionOptimizer]
+    ema_score: Dict[str, torch.Tensor]
+    time_importance: torch.Tensor  # (100,)
+    epistemic_running_mean: torch.Tensor  # 0-d
+    reward_norm: RewardNormState
+    preference_temperature: torch.Tensor  # 0-d
+    rng: torch.Generator
 
 
 class BaseAgent:
     """Holds the configs, the model container and the exploration noise scale.
     ``device`` None means CUDA, and raises where there is none."""
+
+    # Parameter groups per optimizer; subclasses override.
+    PARTITIONS: Dict[str, List[str]] = {}
 
     def __init__(
         self,
@@ -43,6 +192,32 @@ class BaseAgent:
         self.exploration_noise = training_config.exploration_noise
 
     def load_jax_params(self, params: Mapping) -> Tuple[str, ...]:
-        """Load the acting parameters of the JAX agent (``params`` as a nested
-        dict of numpy arrays). Returns the groups it leaves for later ports."""
+        """Load the JAX agent's parameters (``params`` as a nested dict of
+        numpy arrays): the acting groups, which must be there, and the
+        other ported groups that are. Returns the groups it leaves for later
+        ports."""
         return load_jax_params(self.core, params)
+
+    def new_train_state(self, seed: int) -> AgentTrainState:
+        """A train state over the current parameters: fresh optimizers
+        (zero moments), the EMA shadow a copy of the score network, uniform
+        time importance, and ``rng`` a generator on the agent's device
+        seeded with ``seed``."""
+        dev = self.device
+        return AgentTrainState(
+            step=0,
+            optimizers=make_optimizers(self.config, self.PARTITIONS, self.core),
+            ema_score=init_ema(self.core.score_network),
+            time_importance=init_time_importance(dev),
+            epistemic_running_mean=torch.zeros((), device=dev),
+            reward_norm=RewardNormState.create(dev),
+            preference_temperature=torch.tensor(self.config.preference_temperature, device=dev),
+            rng=torch.Generator(device=dev).manual_seed(seed),
+        )
+
+    def init_train_state(self, seed: int) -> AgentTrainState:
+        """Initialise every parameter group as the JAX agent does (the Flax
+        initialisers, torch's numbers), then ``new_train_state``."""
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.core.init_params(generator)
+        return self.new_train_state(seed + 1)

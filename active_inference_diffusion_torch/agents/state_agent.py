@@ -1,23 +1,87 @@
-"""State-observation agent, acting path.
+"""State-observation agent: acting and the train update.
 
 Counterpart of ``active_inference_diffusion_tpu/agents/state_agent.py``
 (``_act_impl`` :74-118, ``_act_warm_impl`` / ``act_warm`` :141-217, ``act``
-:219-243). Training comes with a later port.
+:219-243, ``train_step`` / ``_train_step_impl`` :249-709).
+
+One train update: reward normalisation; one belief sweep of observations
+and next observations together (2B rows, no gradient: the sweep kernel on
+the card); the fused score+model loss (the ELBO terms, with the gradient
+penalty's gradient of a gradient, the dynamics MSE and the continuation
+BCE) and its two AdamW updates; the score EMA and the time-importance
+update; the EFE actor loss and its update; value regression on replay
+lambda-returns; and, every ``epistemic_update_every`` steps (a Python
+``if`` on the host step count), the MINE update. Every draw of the update
+is in a ``TrainDraws``. The flags the flagship leaves off raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..core.active_inference import ActStart
-from .base import BaseAgent
+from ..core.active_inference import ActStart, EfeDraws, ElboDraws, tree_to
+from ..core.epistemic import MineDraws, draw_mine, estimate_epistemic_value
+from ..core.time_sampler import update_time_importance
+from ..models.ema import update_ema
+from .base import AgentTrainState, BaseAgent
+
+# MINE latent samples per transition in the train update (the JAX step's num_samples).
+MINE_SAMPLES = 5
+
+
+def _grads(loss: torch.Tensor, params):
+    """d loss / d params; None where the loss does not reach a parameter."""
+    return torch.autograd.grad(loss, params, allow_unused=True)
+
+
+class _Phases:
+    """Labels the phases of a train update for ``torch.profiler``
+    (``train_step/<phase>`` ranges; a no-op cost when nothing profiles):
+    each call closes the open range and opens the named one; None closes."""
+
+    def __init__(self):
+        self.open = None
+
+    def __call__(self, name: Optional[str]) -> None:
+        if self.open is not None:
+            self.open.__exit__(None, None, None)
+        self.open = None
+        if name is not None:
+            self.open = torch.profiler.record_function(f"train_step/{name}")
+            self.open.__enter__()
+
+
+class TrainDraws(NamedTuple):
+    """Every random draw of one train update."""
+
+    belief_noise: torch.Tensor  # (2B, D) N(0, I): the belief sweep's start
+    belief_seed: torch.Tensor  # 0-d int64: the seed of its in-sweep noise
+    elbo: ElboDraws
+    efe: EfeDraws
+    mine: Optional[MineDraws]  # None on a step without the MINE update
+
+    def to(self, device) -> "TrainDraws":
+        return tree_to(self, device)
 
 
 class DiffusionStateAgent(BaseAgent):
     """Agent over raw state observations."""
+
+    # The optimizer partitions and the JAX parameter groups of each; the
+    # JAX model partition also holds the posterior encoder, which gets no
+    # gradient on this path and comes with its slice.
+    PARTITIONS = {
+        "score": ["score", "diffusion"],
+        "policy": ["policy"],
+        "value": ["value"],
+        "model": ["dynamics", "decoder", "reward", "continuation"],
+        "epistemic": ["epistemic"],
+    }
 
     def act(
         self,
@@ -107,3 +171,150 @@ class DiffusionStateAgent(BaseAgent):
             action = action + noise * self.exploration_noise
         # Always clip to the action space, as the JAX agent does.
         return torch.clamp(action, -1.0, 1.0), latent
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+
+    def check_train_supported(self) -> None:
+        """Raise for the training branches this port does not have yet."""
+        cfg = self.config
+        unported = {
+            "ground_beliefs": (cfg.ground_beliefs, "A4"),
+            "posterior_beliefs": (cfg.posterior_beliefs, "A4a"),
+            "imagined_value_targets": (cfg.imagined_value_targets, "A6"),
+            "policy_anchor_weight > 0": (cfg.policy_anchor_weight > 0, "A6"),
+            "act_with_policy_ema": (cfg.act_with_policy_ema, "A6"),
+            "num_dynamics_ensemble > 1": (cfg.num_dynamics_ensemble > 1, "A4"),
+            "faithful semantics": (cfg.semantics.mode == "faithful", "A4"),
+        }
+        for flag, (on, item) in unported.items():
+            if on:
+                raise NotImplementedError(f"training with {flag} is not ported yet (ROADMAP {item})")
+
+    def draw_train(self, state: AgentTrainState, batch_size: int) -> TrainDraws:
+        """The draws of one update from ``state.rng``: the sweep's start and
+        seed, the ELBO's, the EFE's, and the MINE update's on a step that
+        runs it."""
+        core, g, dev = self.core, state.rng, self.device
+        start = core.draw_start(2 * batch_size, g)
+        elbo = core.draw_elbo(batch_size, state.time_importance, g)
+        efe = core.draw_efe(batch_size, g)
+        mine = None
+        if state.step % self.config.epistemic_update_every == 0:
+            mine = draw_mine(batch_size, core.latent_dim, MINE_SAMPLES,
+                             core.epistemic_estimator.ntk_samples, g, dev)
+        return TrainDraws(start.noise, start.seed, elbo, efe, mine)
+
+    def train_step(
+        self, state: AgentTrainState, batch: Dict[str, torch.Tensor]
+    ) -> Tuple[AgentTrainState, Dict[str, torch.Tensor]]:
+        """One update on ``batch`` (``observations`` (B, obs), ``actions``
+        (B, A), ``rewards`` (B,), ``next_observations``, ``dones`` (B,), on
+        the agent's device). Draws from ``state.rng``, then
+        ``train_step_from_draws``."""
+        draws = self.draw_train(state, batch["rewards"].shape[0])
+        return self.train_step_from_draws(state, batch, draws)
+
+    def train_step_from_draws(
+        self, state: AgentTrainState, batch: Dict[str, torch.Tensor], draws: TrainDraws
+    ) -> Tuple[AgentTrainState, Dict[str, torch.Tensor]]:
+        """Everything of ``train_step`` after its draws. Updates the core's
+        parameters and ``state`` in place and returns the state and the
+        metrics (0-d tensors on the device; nothing waits for the card)."""
+        self.check_train_supported()
+        cfg, core = self.config, self.core
+        opt = state.optimizers
+        rewards, actions, dones = batch["rewards"], batch["actions"], batch["dones"]
+        reward_norm = state.reward_norm.update(rewards)
+        norm_rewards = reward_norm.normalize(rewards)
+
+        # 1. One belief sweep over observations and next observations, no gradient.
+        phase = _Phases()
+        phase("beliefs")
+        obs = batch["observations"]
+        both = torch.cat([obs, batch["next_observations"]], dim=0)
+        belief = core.beliefs_from_start(
+            both, draws.belief_noise, draws.belief_seed,
+            deterministic=cfg.deterministic_beliefs, compute_reconstruction=False,
+        )
+        latents, next_latents = belief.latent.chunk(2, dim=0)
+
+        # 2. The fused score+model loss; the groups' losses are block-diagonal.
+        phase("score_model")
+        terms = core.elbo_terms(obs, norm_rewards, latents, draws.elbo, train=True)
+        score_loss = core.assemble_score_loss(terms)
+        pred_members = core.predict_next_latent_members(latents, actions)
+        dynamics_loss = torch.mean((pred_members - next_latents[None]) ** 2)
+        cont_logit = core.predict_continuation(next_latents)
+        continuation_loss = F.binary_cross_entropy_with_logits(
+            cont_logit, 1.0 - dones.to(cont_logit.dtype)
+        )
+        model_loss = core.assemble_model_loss(terms, dynamics_loss) + continuation_loss
+        n_score = len(opt["score"].params)
+        grads = _grads(score_loss + model_loss, opt["score"].params + opt["model"].params)
+        opt["score"].step(grads[:n_score])
+        opt["model"].step(grads[n_score:])
+        update_ema(state.ema_score, core.score_network, cfg.ema_decay)
+        state.time_importance = update_time_importance(
+            state.time_importance, terms["t"], terms["per_sample_score_losses"].detach()
+        )
+        metrics = {
+            "reconstruction_loss": terms["reconstruction_loss"],
+            "kl_loss": terms["kl_loss"],
+            "score_matching_loss": terms["score_matching_loss"],
+            "grad_penalty": terms["grad_penalty"],
+            "reward_loss": terms["reward_loss"],
+            "elbo": core.elbo_value(terms),
+            "mean_time": terms["mean_time"],
+            "loss_weight_mean": terms["loss_weight_mean"],
+            "dynamics_loss": dynamics_loss,
+            "continuation_loss": continuation_loss,
+        }
+        metrics = {k: v.detach() for k, v in metrics.items()}
+
+        # 3. The EFE actor on the updated model.
+        phase("policy")
+        efe, efe_info = core.compute_expected_free_energy(
+            latents, state.preference_temperature, draws.efe
+        )
+        policy_loss = efe.mean()
+        opt["policy"].step(_grads(policy_loss, opt["policy"].params))
+        metrics["policy_loss"] = policy_loss.detach()
+        metrics.update({k: v.detach() for k, v in efe_info.items()})
+        metrics["policy_anchor_kl"] = torch.zeros((), device=self.device)
+
+        # 4. Value regression on replay lambda-returns.
+        phase("value")
+        b = latents.shape[0]
+        t_now = torch.zeros(b, device=self.device)
+        with torch.no_grad():
+            next_values = core.apply_value(next_latents, torch.ones(b, device=self.device))
+            cur_values = core.apply_value(latents, t_now)
+            targets = core.lambda_returns(norm_rewards, cur_values, next_values, dones)
+        value_loss = F.huber_loss(core.apply_value(latents, t_now), targets, delta=1.0)
+        opt["value"].step(_grads(value_loss, opt["value"].params))
+        metrics["value_loss"] = value_loss.detach()
+
+        # 5. The MINE update every epistemic_update_every steps.
+        phase("mine")
+        if state.step % cfg.epistemic_update_every == 0:
+            if draws.mine is None:
+                raise ValueError(f"step {state.step} runs the MINE update: its draws are missing")
+            with torch.no_grad():
+                next_mean, next_logvar = core.predict_next_latent(latents, actions)
+            result = estimate_epistemic_value(
+                core.epistemic_estimator,
+                lambda z: core.decode_observation(z, train=False),
+                next_mean, next_logvar, draws.mine, state.epistemic_running_mean,
+            )
+            opt["epistemic"].step(_grads(-result.mi_lower_bound, opt["epistemic"].params))
+            state.epistemic_running_mean = result.running_mean
+            metrics["epistemic_mi"] = result.mi_lower_bound.detach()
+        else:
+            metrics["epistemic_mi"] = torch.zeros((), device=self.device)
+
+        phase(None)
+        state.reward_norm = reward_norm
+        state.step += 1
+        return state, metrics

@@ -1,20 +1,28 @@
-"""Diffusion active inference, acting path: belief sweep, refinement, policy.
+"""Diffusion active inference: belief sweep, refinement, policy, and the
+terms of the training losses.
 
 Counterpart of ``active_inference_diffusion_tpu/core/active_inference.py``
-(``__init__`` :64-198, ``apply_policy`` :286-287, ``decode_observation``
-:405-425, ``generate_beliefs`` :431-570, ``refine_beliefs`` :1080-1121,
-``act`` :1137-1208). The modules are ``nn.Module``s on an explicit device,
-CUDA unless the caller asks for another, and every draw takes an explicit
-``torch.Generator``.
+(``__init__`` :64-198, ``init_params`` :204-264, the model applications
+:270-425, ``generate_beliefs`` :431-570, ``compute_expected_free_energy``
+:576-726, ``elbo_terms`` and the loss assemblies :891-1073,
+``refine_beliefs`` :1080-1121, ``act`` :1137-1208). The modules are
+``nn.Module``s on an explicit device, CUDA unless the caller asks for
+another. Every random draw is explicit: a call either takes a
+``torch.Generator`` and draws, or takes the record of its draws
+(``ActStart``, ``ElboDraws``, ``EfeDraws``, ``MineDraws``), so tests can
+hand both packages the same numbers.
 
-The belief sweep always goes through the fused sweep of ``ops.denoise``:
-the variant ``tpu.denoiser_kernel`` selects ("v2", else v1) with the matmul
-weights in the type ``tpu.compute_dtype`` selects ("bfloat16", else
-float32). On a CUDA device that launches the variant's kernel; on the CPU
-it runs the kernel's plain version, bfloat16 rounding included.
+The belief sweep goes through ``ops.denoise``: the variant
+``tpu.denoiser_kernel`` selects ("v2", else v1) with the matmul weights in
+the type ``tpu.compute_dtype`` selects ("bfloat16", else float32). On a
+CUDA device it launches the variant's kernel where the kernels take the
+width (``sweep_uses_kernel``: the JAX core's ``_use_fused_sweep`` rule, 48
+MiB of trunk weights, decided once per core) and runs the plain sweep on
+the card where they do not; on the CPU it runs the plain sweep, bfloat16
+rounding included.
 ``tpu.use_pallas_denoiser`` chose between two TPU implementations and is
 not read here. Branches this port does not have yet raise
-``NotImplementedError``.
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,13 +33,30 @@ import torch
 from torch import nn
 
 from ..configs.config import ActiveInferenceConfig
-from ..models.decoders import StateDecoder
+from ..models.decoders import (
+    DECODER_DROPOUT,
+    ContinuationPredictor,
+    RewardPredictor,
+    StateDecoder,
+    reward_log_prob,
+)
+from ..models.dynamics import LatentDynamicsModel
 from ..models.policy import DiffusionConditionedPolicy, PolicyDist, sample_action
-from ..models.score_network import LatentScoreNetwork
-from ..ops.denoise import fused_denoise_sweep, fused_denoise_sweep_v2, packed_trunk_weights
+from ..models.score_network import OBS_DROPOUT, LatentScoreNetwork
+from ..models.value import ValueNetwork
+from ..ops.denoise import (
+    fused_denoise_sweep,
+    fused_denoise_sweep_v2,
+    kernel_takes,
+    packed_trunk_weights,
+    plain_denoise_sweep,
+)
+from . import diffusion as dproc
 from .belief_dynamics import FPConfig, fp_refine_mean
-from .diffusion import q_sample
+from .epistemic import FunctionSpaceEpistemicEstimator
+from .returns import compute_lambda_returns
 from .schedules import DiffusionSchedule, schedule_from_config
+from .time_sampler import draw_time, importance_sample_time
 
 # The largest seed the sweep's noise generator is keyed with.
 SEED_BOUND = 2**31 - 1
@@ -50,11 +75,36 @@ def resolve_device(device) -> torch.device:
     return torch.device("cuda")
 
 
+# The JAX parameter groups and the module of the core each one fills.
+GROUP_MODULES = {
+    "score": "score_network",
+    "diffusion": "diffusion",
+    "policy": "policy_network",
+    "value": "value_network",
+    "dynamics": "latent_dynamics",
+    "decoder": "observation_decoder",
+    "reward": "reward_predictor",
+    "continuation": "continuation_predictor",
+    "epistemic": "epistemic_estimator",
+}
+
+
+def tree_to(obj, device):
+    """A record of draws (nested NamedTuples and tuples of tensors, None
+    allowed) with every tensor moved to ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, tuple):
+        items = [tree_to(x, device) for x in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
+    return obj
+
+
 class BeliefInfo(NamedTuple):
     latent: torch.Tensor  # (B, D)
     latent_mean: torch.Tensor  # (D,)
     latent_std: torch.Tensor  # (D,)
-    reconstruction_error: torch.Tensor  # scalar
+    reconstruction_error: torch.Tensor  # scalar; 0 unless computed
     trajectory: Optional[torch.Tensor]  # always None in this port
 
 
@@ -66,11 +116,31 @@ class ActStart(NamedTuple):
     refine_noise: Optional[torch.Tensor]  # (refine_steps, B, D) N(0, I); None without refinement
 
     def to(self, device) -> "ActStart":
-        return ActStart(*(None if t is None else t.to(device) for t in self))
+        return tree_to(self, device)
+
+
+class ElboDraws(NamedTuple):
+    """The draws of one ``elbo_terms`` call in training."""
+
+    decoder_masks: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # the decoder blocks' keep-masks
+    score_mask: torch.Tensor  # (B, hidden) keep-mask of the score network's observation dropout
+    time_bins: torch.Tensor  # (B,) int64 bins of the time importance sampler
+    time_jitter: torch.Tensor  # (B,) uniform [0, 1) within the bin
+    noise: torch.Tensor  # (B, D) N(0, I) of the forward diffusion
+    prior_noise: torch.Tensor  # (B, D) N(0, I) of the latent prior sample
+
+
+class EfeDraws(NamedTuple):
+    """The draws of one ``compute_expected_free_energy`` call."""
+
+    policy_noise: torch.Tensor  # (horizon, T B, A) N(0, I) of the policy samples
+    dynamics_noise: torch.Tensor  # (horizon, T B, D) N(0, I) of the imagined transitions
 
 
 class DiffusionActiveInference(nn.Module):
-    """Score network, policy, state decoder and schedule of one agent."""
+    """The models of one agent (score network, diffusion parameters, policy,
+    value, dynamics, decoder, reward and continuation heads, the epistemic
+    estimator) and the schedule."""
 
     def __init__(
         self,
@@ -82,7 +152,7 @@ class DiffusionActiveInference(nn.Module):
     ):
         super().__init__()
         if config.pixel_observation:
-            raise NotImplementedError("pixel observations are not ported yet")
+            raise NotImplementedError("pixel observations are not ported yet (ROADMAP A11)")
         self.observation_dim = observation_dim
         self.action_dim = action_dim
         self.latent_dim = latent_dim
@@ -90,12 +160,14 @@ class DiffusionActiveInference(nn.Module):
         self.device = resolve_device(device)
 
         self.schedule: DiffusionSchedule = schedule_from_config(config.diffusion, self.device)
+        h = config.hidden_dim
         self.score_network = LatentScoreNetwork(
             latent_dim=latent_dim,
             observation_dim=observation_dim,
-            hidden_dim=config.hidden_dim,
+            hidden_dim=h,
             num_layers=config.score_num_layers,
         )
+        self.diffusion = dproc.DiffusionParams(latent_dim)
         # Explicit flag wins; otherwise corrected mode squashes.
         self.policy_squash = (
             config.policy_squash
@@ -103,10 +175,26 @@ class DiffusionActiveInference(nn.Module):
             else config.semantics.mode == "corrected"
         )
         self.policy_network = DiffusionConditionedPolicy(
-            latent_dim=latent_dim, action_dim=action_dim, hidden_dim=config.hidden_dim
+            latent_dim=latent_dim, action_dim=action_dim, hidden_dim=h
+        )
+        self.value_network = ValueNetwork(latent_dim, hidden_dim=h, time_embed_dim=128,
+                                          num_layers=3)
+        self.latent_dynamics = LatentDynamicsModel(
+            latent_dim, action_dim, hidden_dim=h, num_layers=3,
+            members=config.num_dynamics_ensemble,
         )
         self.observation_decoder = StateDecoder(
-            latent_dim=latent_dim, observation_dim=observation_dim, hidden_dim=config.hidden_dim
+            latent_dim=latent_dim, observation_dim=observation_dim, hidden_dim=h
+        )
+        self.reward_predictor = RewardPredictor(latent_dim, hidden_dim=h)
+        self.continuation_predictor = ContinuationPredictor(latent_dim, hidden_dim=h)
+        self.epistemic_estimator = FunctionSpaceEpistemicEstimator(
+            observation_dim, latent_dim, ntk_samples=4,
+            aggregator_output_dim=config.spatial_aggregator_output_dim,
+        )
+        # The kernels take the width, on a card: decided here, once.
+        self.sweep_uses_kernel = self.device.type == "cuda" and kernel_takes(
+            latent_dim, h, config.score_num_layers, self.sweep_dtype
         )
         self.to(self.device)
 
@@ -120,12 +208,76 @@ class DiffusionActiveInference(nn.Module):
     def sweep_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.config.tpu.compute_dtype == "bfloat16" else torch.float32
 
+    def init_params(self, generator: torch.Generator) -> None:
+        """Initialise every group with the Flax initialisers the JAX core's
+        ``init_params`` uses; the numbers come from ``generator``."""
+        for attr in GROUP_MODULES.values():
+            getattr(self, attr).reset_parameters(generator)
+
+    # -- model applications ----------------------------------------------
+
     def apply_policy(self, z: torch.Tensor) -> PolicyDist:
         return self.policy_network(z)
 
-    def decode_observation(self, latent: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def apply_value(self, z: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return self.value_network(z, t)[..., 0]
+
+    def predict_next_latent_members(self, latent: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        """(K, B, D) next-latent means of all ensemble members."""
+        return self.latent_dynamics(latent, action)
+
+    def predict_next_latent(
+        self, latent: torch.Tensor, action: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The members' mean next latent and the fixed log-variance
+        ``dynamics_logvar``."""
+        members = self.predict_next_latent_members(latent, action)
+        next_mean = members[0] if members.shape[0] == 1 else members.mean(dim=0)
+        return next_mean, torch.full_like(next_mean, self.config.dynamics_logvar)
+
+    def imagine_next(
+        self, latent: torch.Tensor, action: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One imagination step: the next-latent mean, its fixed log-variance
+        and the model disagreement (0 for one network)."""
+        if self.config.num_dynamics_ensemble > 1:
+            raise NotImplementedError(
+                "imagination over a dynamics ensemble (a member per sample) is not ported "
+                "yet (ROADMAP A4)"
+            )
+        next_mean, next_logvar = self.predict_next_latent(latent, action)
+        return next_mean, next_logvar, torch.zeros_like(next_mean[:, 0])
+
+    def _guard_imagined_reward(
+        self, reward_mean: torch.Tensor, reward_std: torch.Tensor, disagreement: torch.Tensor
+    ) -> torch.Tensor:
+        """NLL-sigma pessimism, ensemble-disagreement pessimism, then the
+        hard clip, each where its weight is set."""
+        cfg = self.config
+        if cfg.imagined_reward_pessimism > 0.0:
+            reward_mean = reward_mean - cfg.imagined_reward_pessimism * reward_std
+        if cfg.ensemble_pessimism > 0.0:
+            reward_mean = reward_mean - cfg.ensemble_pessimism * disagreement
+        if cfg.imagined_reward_clip > 0.0:
+            reward_mean = torch.clamp(
+                reward_mean, -cfg.imagined_reward_clip, cfg.imagined_reward_clip
+            )
+        return reward_mean
+
+    def predict_reward(self, latent: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.reward_predictor(latent)
+
+    def predict_continuation(self, latent: torch.Tensor) -> torch.Tensor:
+        """Continuation logit c(z); sigmoid gives P(episode continues)."""
+        return self.continuation_predictor(latent)
+
+    def decode_observation(
+        self, latent: torch.Tensor, train: bool = False, dropout_masks=None
+    ) -> torch.Tensor:
         """Decode a latent to observation space (the state branch)."""
-        return self.observation_decoder(latent, train=train)
+        return self.observation_decoder(latent, train=train, dropout_masks=dropout_masks)
+
+    # -- belief generation --------------------------------------------------
 
     def draw_start(self, batch_size: int, generator: torch.Generator) -> ActStart:
         """The draws of one act call, in this order: the sweep's start
@@ -155,25 +307,31 @@ class DiffusionActiveInference(nn.Module):
         num_steps: Optional[int] = None,
         deterministic: bool = False,
         z_init: Optional[torch.Tensor] = None,
+        compute_reconstruction: bool = True,
     ) -> BeliefInfo:
         """The reverse-diffusion sweep conditioned on the observations. It
         starts from ``noise``, or, for a warm start, from ``z_init``
         forward-noised with ``noise`` to the truncation timestep k-1 by
         ``q_sample``. The observation embedding and all K time embeddings
-        are computed once, outside the sweep."""
+        are computed once, outside the sweep. With
+        ``compute_reconstruction`` the reconstruction error is the mean
+        squared error of the decoded belief against the observation."""
         k = self.schedule.num_steps if num_steps is None else num_steps
         if k > self.schedule.num_steps:
             raise ValueError(f"num_steps={k} exceeds schedule length {self.schedule.num_steps}")
         z0 = noise
         if z_init is not None:
             t0 = torch.full((noise.shape[0],), k - 1, dtype=torch.int64, device=self.device)
-            z0 = q_sample(self.schedule, z_init, t0, noise)
+            z0 = dproc.q_sample(self.schedule, z_init, t0, noise)
 
         net = self.score_network
         obs_emb = net.obs_embedding(observation)
         timesteps = torch.arange(k - 1, -1, -1, device=self.device)
         t_embs = net.time_embedding(timesteps.to(observation.dtype), continuous=False)
-        sweep = fused_denoise_sweep_v2 if self.sweep_variant == "v2" else fused_denoise_sweep
+        if self.sweep_uses_kernel or self.device.type != "cuda":
+            sweep = fused_denoise_sweep_v2 if self.sweep_variant == "v2" else fused_denoise_sweep
+        else:
+            sweep = plain_denoise_sweep
         latent = sweep(
             self.schedule, packed_trunk_weights(net, self.sweep_variant, self.sweep_dtype),
             z0.contiguous(), obs_emb.contiguous(), t_embs.contiguous(), seed,
@@ -185,11 +343,15 @@ class DiffusionActiveInference(nn.Module):
             latent_std = latent.std(dim=0, correction=1)
         else:
             latent_std = torch.zeros_like(latent_mean)
+        if compute_reconstruction:
+            reconstruction_error = torch.mean((self.decode_observation(latent) - observation) ** 2)
+        else:
+            reconstruction_error = torch.zeros((), device=self.device)
         return BeliefInfo(
             latent=latent,
             latent_mean=latent_mean,
             latent_std=latent_std,
-            reconstruction_error=torch.zeros((), device=self.device),
+            reconstruction_error=reconstruction_error,
             trajectory=None,
         )
 
@@ -200,15 +362,224 @@ class DiffusionActiveInference(nn.Module):
         num_steps: Optional[int] = None,
         deterministic: bool = False,
         return_trajectory: bool = False,
+        compute_reconstruction: bool = True,
         z_init: Optional[torch.Tensor] = None,
     ) -> BeliefInfo:
         """Draw the start, then run ``beliefs_from_start``."""
         if return_trajectory:
-            raise NotImplementedError("return_trajectory is not ported yet")
+            raise NotImplementedError("return_trajectory is not ported yet (ROADMAP A4)")
         start = self.draw_start(observation.shape[0], generator)
         return self.beliefs_from_start(
-            observation, start.noise, start.seed, num_steps, deterministic, z_init
+            observation, start.noise, start.seed, num_steps, deterministic, z_init,
+            compute_reconstruction,
         )
+
+    # -- expected free energy ----------------------------------------------
+
+    def draw_efe(self, batch_size: int, generator: torch.Generator) -> EfeDraws:
+        cfg = self.config
+        n = cfg.num_efe_trajectories * batch_size
+        return EfeDraws(
+            torch.randn((cfg.efe_horizon, n, self.action_dim), generator=generator,
+                        device=self.device),
+            torch.randn((cfg.efe_horizon, n, self.latent_dim), generator=generator,
+                        device=self.device),
+        )
+
+    def compute_expected_free_energy(
+        self,
+        latent: torch.Tensor,
+        preference_temperature: torch.Tensor,
+        draws: EfeDraws,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """G(pi) accumulated over imagined latent trajectories: the
+        ``num_efe_trajectories`` copies of the batch are folded into one
+        batch axis and rolled ``efe_horizon`` steps through the policy and
+        the dynamics. A step's term is the signed pragmatic value
+        (w_p r(z') / tau + w_v V(z', t)) plus ``consistency_weight`` times
+        the negative policy entropy, discounted by gamma^t. Returns the EFE
+        per batch row (B,) and the mean terms.
+
+        The epistemic term has no policy gradient; corrected mode leaves it
+        out here, as the JAX core does. Computing it (faithful mode) is not
+        ported."""
+        cfg = self.config
+        if cfg.semantics.mode == "faithful" and cfg.epistemic_weight != 0.0:
+            raise NotImplementedError(
+                "the EFE's epistemic term (faithful semantics) is not ported yet (ROADMAP A4)"
+            )
+        horizon = cfg.efe_horizon
+        batch_size = latent.shape[0]
+        n = cfg.num_efe_trajectories * batch_size
+        if draws.policy_noise.shape[:2] != (horizon, n):
+            raise ValueError(f"EFE draws of shape {tuple(draws.policy_noise.shape)} do not fit "
+                             f"horizon {horizon} x {n} imagined rows")
+        prag_w = cfg.pragmatic_weight
+        prag_scale = cfg.semantics.pragmatic_sign * (
+            prag_w if cfg.semantics.double_pragmatic_weight else 1.0
+        )
+        z = latent.repeat(cfg.num_efe_trajectories, 1)
+        total = torch.zeros(n, dtype=latent.dtype, device=latent.device)
+        prag_means, cons_means = [], []
+        for i in range(horizon):
+            dist = self.apply_policy(z)
+            action, _ = sample_action(dist, draws.policy_noise[i], squash=self.policy_squash)
+            next_mean, next_logvar, disagreement = self.imagine_next(z, action)
+            if cfg.imagine_deterministic:
+                next_z = next_mean
+            else:
+                next_z = next_mean + draws.dynamics_noise[i] * torch.exp(0.5 * next_logvar)
+            reward_mean, reward_std = self.predict_reward(next_z)
+            reward_mean = self._guard_imagined_reward(reward_mean, reward_std, disagreement)
+            t_batch = torch.full((n,), float(i), dtype=z.dtype, device=z.device)
+            pragmatic = prag_w * (reward_mean / preference_temperature)
+            pragmatic = pragmatic + cfg.efe_value_weight * self.apply_value(next_z, t_batch)
+            consistency = -dist.entropy()
+            step_efe = prag_scale * pragmatic + cfg.consistency_weight * consistency
+            total = total + cfg.discount_factor**i * step_efe
+            prag_means.append(pragmatic.mean())
+            cons_means.append(consistency.mean())
+            z = next_z
+        efe = total.reshape(cfg.num_efe_trajectories, batch_size).mean(dim=0)
+        info = {
+            "efe/epistemic_mean": torch.zeros((), device=latent.device),
+            "efe/pragmatic_mean": torch.stack(prag_means).mean(),
+            "efe/consistency_mean": torch.stack(cons_means).mean(),
+        }
+        return efe, info
+
+    # -- the diffusion ELBO -------------------------------------------------
+
+    def draw_elbo(
+        self, batch_size: int, time_importance: torch.Tensor, generator: torch.Generator
+    ) -> ElboDraws:
+        def keep(width: int, rate: float) -> torch.Tensor:
+            u = torch.rand((batch_size, width), generator=generator, device=self.device)
+            return u >= rate
+
+        decoder_masks = tuple(keep(w, DECODER_DROPOUT) for w in self.observation_decoder.widths)
+        score_mask = keep(self.config.hidden_dim, OBS_DROPOUT)
+        bins, jitter = draw_time(time_importance, batch_size, generator)
+        shape = (batch_size, self.latent_dim)
+        noise = torch.randn(shape, generator=generator, device=self.device)
+        prior_noise = torch.randn(shape, generator=generator, device=self.device)
+        return ElboDraws(decoder_masks, score_mask, bins, jitter, noise, prior_noise)
+
+    def elbo_terms(
+        self,
+        observations: torch.Tensor,
+        rewards: torch.Tensor,
+        latents: torch.Tensor,
+        draws: ElboDraws,
+        train: bool = True,
+    ) -> Dict[str, torch.Tensor]:
+        """Every term of the diffusion ELBO, once; callers assemble the
+        per-group losses. Reconstruction of the observation from the
+        latents; score matching of the noised latents (as a fixed z_0
+        draw) at importance-sampled continuous times against the true
+        score; the gradient penalty ||d sum(score) / dz|| -> 1, a gradient
+        of a gradient for the caller's backward; the KL to the learned
+        prior, annealed by exp(-5 mean t); the reward NLL. Also the
+        per-sample score losses and the times, for the importance sampler.
+        Dropout runs where ``train``, with the draws' masks."""
+        masks = draws.decoder_masks if train else None
+        decoded = self.decode_observation(latents, train=train, dropout_masks=masks)
+        reconstruction_loss = torch.mean((decoded - observations) ** 2)
+
+        t = importance_sample_time(draws.time_bins, draws.time_jitter)
+        noise = draws.noise
+        noisy_latents, qinfo = dproc.continuous_q_sample(self.diffusion, latents.detach(), t, noise)
+        score_mask = draws.score_mask if train else None
+
+        def score_at(z: torch.Tensor) -> torch.Tensor:
+            return self.score_network(z, t, observations, continuous=True,
+                                      obs_dropout_mask=score_mask)
+
+        predicted_score = score_at(noisy_latents)
+        sigma = qinfo["sigma"]
+        denom = torch.sqrt(sigma) if self.config.semantics.score_target_uses_std else sigma
+        true_score = -noise / (denom + 1e-8)
+        loss_weight = dproc.compute_loss_weight(self.diffusion, t)
+        per_sample = loss_weight * torch.sum((predicted_score - true_score) ** 2, dim=1)
+        score_matching_loss = torch.mean(per_sample)
+
+        z = noisy_latents.detach().requires_grad_(True)
+        (grads,) = torch.autograd.grad(score_at(z).sum(), z, create_graph=True)
+        # epsilon inside the sqrt: the exact norm has a NaN gradient at 0
+        grad_norm = torch.sqrt(torch.sum(grads**2, dim=1) + 1e-12)
+        grad_penalty = torch.mean((grad_norm - 1.0) ** 2)
+
+        prior_latents = dproc.sample_latent_prior(self.diffusion, draws.prior_noise)
+        kl_loss = torch.mean(0.5 * torch.sum((latents - prior_latents) ** 2, dim=-1))
+        kl_anneal = torch.exp(-5.0 * torch.mean(t))
+
+        reward_mean, reward_std = self.predict_reward(latents)
+        reward_loss = -torch.mean(reward_log_prob(reward_mean, reward_std, rewards))
+        return {
+            "reconstruction_loss": reconstruction_loss,
+            "score_matching_loss": score_matching_loss,
+            "per_sample_score_losses": per_sample,
+            "grad_penalty": grad_penalty,
+            "kl_loss": kl_loss,
+            "kl_anneal": kl_anneal,
+            "reward_loss": reward_loss,
+            "t": t,
+            "mean_time": torch.mean(t),
+            "loss_weight_mean": torch.mean(loss_weight),
+        }
+
+    def assemble_score_loss(self, terms: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The score+diffusion group's loss: score matching, the annealed KL
+        and the gradient penalty, minimised (corrected mode); faithful mode
+        ascends them, as the reference's literal -elbo does."""
+        cfg = self.config
+        core = (
+            cfg.diffusion_weight * terms["score_matching_loss"]
+            + cfg.kl_weight * terms["kl_loss"] * terms["kl_anneal"]
+            + cfg.grad_penalty_weight * terms["grad_penalty"]
+        )
+        return -core if cfg.semantics.mode == "faithful" else core
+
+    def assemble_model_loss(
+        self, terms: Dict[str, torch.Tensor], dynamics_loss: torch.Tensor
+    ) -> torch.Tensor:
+        """The model group's loss: reconstruction, weighted reward NLL and
+        dynamics MSE (only the dynamics MSE where the semantics do not train
+        the decoder and reward head)."""
+        cfg = self.config
+        if cfg.semantics.train_decoder_and_reward:
+            return (
+                terms["reconstruction_loss"]
+                + cfg.reward_weight * terms["reward_loss"]
+                + dynamics_loss
+            )
+        return dynamics_loss
+
+    def elbo_value(self, terms: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The reference's reported ELBO scalar, for logging."""
+        cfg = self.config
+        return (
+            -terms["reconstruction_loss"]
+            + cfg.kl_weight * terms["kl_loss"] * terms["kl_anneal"]
+            + cfg.diffusion_weight * terms["score_matching_loss"]
+            + cfg.grad_penalty_weight * terms["grad_penalty"]
+            - cfg.reward_weight * terms["reward_loss"]
+        )
+
+    def lambda_returns(
+        self,
+        rewards: torch.Tensor,
+        values: torch.Tensor,
+        next_values: torch.Tensor,
+        dones: torch.Tensor,
+    ) -> torch.Tensor:
+        cfg = self.config
+        return compute_lambda_returns(
+            rewards, values, next_values, dones, discount=cfg.discount_factor,
+            lambda_=cfg.lambda_return, n_steps=cfg.lambda_n_steps,
+        )
+
+    # -- acting ---------------------------------------------------------------
 
     def refine_beliefs(
         self,
@@ -235,9 +606,17 @@ class DiffusionActiveInference(nn.Module):
         """Raise for the acting branches this port does not have yet."""
         cfg = self.config
         if cfg.act_from_posterior:
-            raise NotImplementedError("act_from_posterior is not ported yet")
+            raise NotImplementedError("act_from_posterior is not ported yet (ROADMAP A4a)")
         if cfg.plan_candidates > 0:
-            raise NotImplementedError("act_planned (plan_candidates > 0) is not ported yet")
+            raise NotImplementedError(
+                "act_planned (plan_candidates > 0) is not ported yet (ROADMAP A12)"
+            )
+
+    def _refined(self, latent: torch.Tensor, observation: torch.Tensor,
+                 start: ActStart) -> torch.Tensor:
+        if self.config.belief_dynamics.use_belief_dynamics:
+            return self.refine_beliefs(latent, observation, noise=start.refine_noise)
+        return latent
 
     def belief_latent(
         self,
@@ -253,10 +632,9 @@ class DiffusionActiveInference(nn.Module):
         latent = self.beliefs_from_start(
             observation, start.noise, start.seed, num_steps,
             deterministic=self.config.deterministic_beliefs, z_init=z_init,
+            compute_reconstruction=False,
         ).latent
-        if self.config.belief_dynamics.use_belief_dynamics:
-            latent = self.refine_beliefs(latent, observation, noise=start.refine_noise)
-        return latent
+        return self._refined(latent, observation, start)
 
     @torch.no_grad()
     def policy_action(
@@ -288,11 +666,28 @@ class DiffusionActiveInference(nn.Module):
         generator: Optional[torch.Generator],
         deterministic: bool = False,
         num_steps: Optional[int] = None,
+        efe: Optional[EfeDraws] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Everything of ``act`` after the start draw: the belief (sweep and
-        refinement), the policy head and its sample."""
-        latent = self.belief_latent(observation, start, num_steps)
-        return self.policy_action(latent, generator, deterministic)
+        refinement), the policy head and its sample. With the draws of an
+        EFE (``compute_efe_info``) the info also holds the belief's
+        reconstruction error and the EFE of the policy on the belief."""
+        if efe is None:
+            latent = self.belief_latent(observation, start, num_steps)
+            return self.policy_action(latent, generator, deterministic)
+        self.check_act_supported()
+        belief = self.beliefs_from_start(
+            observation, start.noise, start.seed, num_steps,
+            deterministic=self.config.deterministic_beliefs,
+        )
+        latent = self._refined(belief.latent, observation, start)
+        action, info = self.policy_action(latent, generator, deterministic)
+        temperature = torch.tensor(self.config.preference_temperature, device=self.device)
+        value, efe_info = self.compute_expected_free_energy(latent, temperature, efe)
+        info["expected_free_energy"] = value.mean()
+        info["reconstruction_error"] = belief.reconstruction_error
+        info.update(efe_info)
+        return action, info
 
     def act(
         self,
@@ -302,10 +697,11 @@ class DiffusionActiveInference(nn.Module):
         num_steps: Optional[int] = None,
         compute_efe_info: bool = False,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Belief update via reverse diffusion, then a policy sample."""
-        if compute_efe_info:
-            raise NotImplementedError("compute_efe_info is not ported yet")
+        """Belief update via reverse diffusion, then a policy sample; with
+        ``compute_efe_info`` also the EFE diagnostics (the reference computes
+        them here but does not act on them)."""
         if observation.dim() == 1:
             observation = observation[None]
         start = self.draw_start(observation.shape[0], generator)
-        return self.act_from_start(observation, start, generator, deterministic, num_steps)
+        efe = self.draw_efe(observation.shape[0], generator) if compute_efe_info else None
+        return self.act_from_start(observation, start, generator, deterministic, num_steps, efe)

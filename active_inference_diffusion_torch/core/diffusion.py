@@ -1,15 +1,72 @@
-"""Discrete forward and reverse diffusion steps as plain tensor functions.
+"""Diffusion math as plain tensor functions: the learnable continuous-time
+process of the ELBO and the discrete forward and reverse steps of the sweep.
 
-Counterpart of ``active_inference_diffusion_tpu/core/diffusion.py:79-129``.
-Noise is an explicit argument, as in the JAX package: the caller draws it
-from its own ``torch.Generator``.
+Counterpart of ``active_inference_diffusion_tpu/core/diffusion.py:26-129``.
+The learnable quantities (latent prior mean and log-std, log-SNR bounds)
+are the parameters of a small module, ``DiffusionParams`` (the JAX
+``diffusion`` parameter group). Noise is an explicit argument, as in the JAX
+package: the caller draws it from its own ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Dict, Tuple
+
 import torch
+from torch import nn
 
 from .schedules import DiffusionSchedule, extract
+
+
+class DiffusionParams(nn.Module):
+    """The learnable diffusion parameters: a Gaussian latent prior (mean 0,
+    log-std 0 at init) and the log-SNR range [-10, 10] of continuous time."""
+
+    def __init__(self, latent_dim: int):
+        super().__init__()
+        self.latent_prior_mean = nn.Parameter(torch.zeros(latent_dim))
+        self.latent_prior_log_std = nn.Parameter(torch.zeros(latent_dim))
+        self.log_snr_min = nn.Parameter(torch.tensor(-10.0))
+        self.log_snr_max = nn.Parameter(torch.tensor(10.0))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator = None) -> None:
+        self.latent_prior_mean.zero_()
+        self.latent_prior_log_std.zero_()
+        self.log_snr_min.fill_(-10.0)
+        self.log_snr_max.fill_(10.0)
+
+
+def compute_log_snr(params: DiffusionParams, t: torch.Tensor) -> torch.Tensor:
+    """Log signal-to-noise ratio over continuous time t in [0, 1]."""
+    return params.log_snr_min + (params.log_snr_max - params.log_snr_min) * (1.0 - t)
+
+
+def continuous_q_sample(
+    params: DiffusionParams, z_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Continuous-time forward diffusion: alpha = sigmoid(log_snr),
+    sigma = sigmoid(-log_snr), z_t = sqrt(alpha) z_0 + sqrt(sigma) eps."""
+    log_snr = compute_log_snr(params, t)
+    alpha = torch.sigmoid(log_snr)[:, None]
+    sigma = torch.sigmoid(-log_snr)[:, None]
+    z_noisy = torch.sqrt(alpha) * z_start + torch.sqrt(sigma) * noise
+    return z_noisy, {"log_snr": log_snr, "alpha": alpha, "sigma": sigma}
+
+
+def compute_loss_weight(params: DiffusionParams, t: torch.Tensor) -> torch.Tensor:
+    """Score-matching weight exp(-log_snr^2 / 8) (sin(pi t) + 0.1), which
+    emphasises the middle of the time range."""
+    log_snr = compute_log_snr(params, t)
+    return torch.exp(-0.5 * (log_snr**2) / 4.0) * (torch.sin(t * math.pi) + 0.1)
+
+
+def sample_latent_prior(params: DiffusionParams, eps: torch.Tensor) -> torch.Tensor:
+    """A draw of the learned Gaussian latent prior from standard normals
+    ``eps`` (B, D)."""
+    std = torch.exp(params.latent_prior_log_std)
+    return params.latent_prior_mean[None, :] + std[None, :] * eps
 
 
 def q_sample(

@@ -70,11 +70,20 @@
 //
 // Shared memory. Operand rows are padded by 16 bytes (8 bf16, 4 float32), which keeps
 // ldmatrix free of bank conflicts. The float32 plan at latent 64, hidden 256 is 230,464 B
-// of the 232,448 B a block may use; the MLP hidden's operand copy is 65,792 B of it.
+// of the 232,448 B a block may use; the MLP hidden's operand copy is 65,792 B of it. Where
+// the operand copies do not fit (or the piece table outgrows MAX_PIECES), the streamed
+// plan keeps one copy of each per cluster in global memory (the arena, a few hundred KB a
+// cluster, which stays in L2), written once by the rank that computes the columns and
+// read through L2; the ring, the partials, the rank's slices of h and of the modulation
+// and the adaLN statistics stay in shared memory, so its shared memory grows with the
+// hidden width only (149 KB at hidden 1280).
 //
-// Widths: hidden % (8 x CLUSTER) == 0; the latent and out_fc1's width are padded to a
-// multiple of 8 x CLUSTER with zero weights. ops/denoise.py mirrors the shared-memory plan
-// (sweep_smem_bytes) and the layout (kernel_layout), and raises on what the plan cannot take.
+// Widths: the kernel's hidden width H is a multiple of 8 x CLUSTER; a model's hidden
+// width Hr is padded to it with zero weights at the end of every hidden axis (the scale
+// and the shift halves of a modulation each), and the adaLN statistics count the Hr real
+// columns only. The latent and out_fc1's width are padded to a multiple of 8 x CLUSTER
+// with zero weights. ops/denoise.py mirrors both plans (sweep_smem_bytes), builds the
+// layout (kernel_layout) and picks the plan (kernel_plan).
 //
 // Plain C interface, bound from Python with ctypes (ops/_build.py, ops/denoise.py).
 
@@ -196,6 +205,11 @@ struct Operand<__nv_bfloat16> {
 #pragma unroll
     for (int q = 0; q < CLUSTER; ++q) *cluster.map_shared_rank(reinterpret_cast<uint4*>(dst), q) = w;
   }
+  // Write 8 values (16 bytes) once, into the cluster's arena.
+  static __device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&v)[8]) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                                pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
 };
 
 template <>
@@ -237,19 +251,39 @@ struct Operand<float> {
       p[1] = w1;
     }
   }
+  // Write 8 values (32 bytes) once, into the cluster's arena.
+  static __device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
+    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
 };
 
-// Shared-memory plan (bytes) for operand type T; sweep_smem_bytes in ops/denoise.py mirrors
-// it. Operand copies are T with ROW_PAD bytes of row padding; the residual stream, the
-// modulation and z are the rank's float32 slices; the adaLN statistics are CLUSTER x TB
-// float2, one per rank and row. The split-K partials are double-buffered. Strides (ld*) are
-// in elements of T.
+// Write 8 values of an operand copy: into every CTA's shared memory (resident plan) or
+// once into the cluster's arena (streamed).
+template <typename T, bool S>
+__device__ __forceinline__ void put8(T* dst, const float (&v)[8]) {
+  if constexpr (S)
+    Operand<T>::store8(dst, v);
+  else
+    Operand<T>::broadcast8(dst, v);
+}
+
+// Shared-memory plan (bytes) for operand type T and placement S; sweep_smem_bytes in
+// ops/denoise.py mirrors its shared memory, and aid_sweep_arena_bytes reports its arena. Operand copies are T with ROW_PAD bytes of row
+// padding; the residual stream and the modulation are the rank's float32 slices, z's
+// float32 slice too; the adaLN statistics are CLUSTER x TB float2, one per rank and row.
+// The split-K partials are double-buffered. Resident (S false): the operand copies and z's
+// slice follow the fixed part in shared memory, whose piece table holds MAX_PIECES
+// entries. Streamed (S true): they live in the cluster's `arena` bytes of global memory,
+// one copy a cluster read through L2, with every rank's z slice; the piece table is read
+// from global memory. Offsets zb..zs count from the operands' base. Strides (ld*) are in
+// elements of T.
 struct Plan {
   int Dp, HC, DC, NP1, ldz, ldh, ldm;
-  size_t bars, table, red, zb, scb, xb, mb, hf, mf, st, zs, bytes;
+  size_t bars, table, red, hf, mf, st, zb, scb, xb, mb, zs, bytes, arena;
 };
 
-template <typename T>
+template <typename T, bool S>
 __host__ __device__ inline Plan make_plan(int D, int H) {
   constexpr int E = (int)sizeof(T), PAD = ROW_PAD / E;
   Plan p;
@@ -262,29 +296,38 @@ __host__ __device__ inline Plan make_plan(int D, int H) {
   p.ldm = (4 * H > p.NP1 ? 4 * H : p.NP1) + PAD;
   p.bars = (size_t)STAGES * SLOT_BYTES;
   p.table = p.bars + 64;
-  p.red = p.table + MAX_PIECES * 8;
-  p.zb = p.red + 2 * RED_FLOATS * 4;
-  p.scb = p.zb + (size_t)TB * p.ldz * E;
-  p.xb = p.scb + (size_t)TB * p.ldh * E;
-  p.mb = p.xb + (size_t)TB * p.ldh * E;
-  p.hf = p.mb + (size_t)TB * p.ldm * E;
+  p.red = p.table + (S ? 0 : MAX_PIECES * 8);
+  p.hf = p.red + 2 * RED_FLOATS * 4;
   p.mf = p.hf + (size_t)TB * p.HC * 4;
   p.st = p.mf + (size_t)TB * 2 * p.HC * 4;
-  p.zs = p.st + (size_t)CLUSTER * TB * 8;
-  p.bytes = p.zs + TB * p.DC * 4;
+  const size_t fixed = p.st + (size_t)CLUSTER * TB * 8;
+  size_t o = S ? 0 : fixed;
+  p.zb = o;
+  o += (size_t)TB * p.ldz * E;
+  p.scb = o;
+  o += (size_t)TB * p.ldh * E;
+  p.xb = o;
+  o += (size_t)TB * p.ldh * E;
+  p.mb = o;
+  o += (size_t)TB * p.ldm * E;
+  p.zs = o;
+  o += (size_t)(S ? CLUSTER : 1) * TB * p.DC * 4;
+  p.bytes = S ? fixed : o;
+  p.arena = S ? o : 0;
   return p;
 }
 
 struct Args {
   const float* z0;       // (B, D)
-  const float* obs_emb;  // (B, H)
-  const float* t_embs;   // (K, H), row s = timestep K-1-s
+  const float* obs_emb;  // (B, Hr)
+  const float* t_embs;   // (K, Hr), row s = timestep K-1-s
   const float* coeffs;   // (K, 8): s1 s2 c1 c2 sd mask 0 0
   const void* wk;        // kernel-order weights (of the operand type) with float32 bias heads
   const uint2* pieces;   // (CLUSTER, P): (offset in 16-byte units, bytes) of each piece of a step
   const long long* seed;
   float* out;            // (B, D)
-  int B, D, H, L, K, P;
+  char* arena;           // streamed plan: Plan::arena bytes per cluster; else unused
+  int B, D, H, Hr, L, K, P;  // H: the kernel's hidden width, Hr <= H the model's
   float mult;
   int stochastic;
 };
@@ -308,7 +351,7 @@ struct Ctx {
   T *zb, *scb, *xb, *mb;
   float *hf, *mf, *zs;
   float2* st;     // adaLN statistics: (row sum, squared deviations) of each rank and row
-  const uint2* table;  // this rank's piece table, copied to shared memory
+  const uint2* table;  // this rank's piece table: in shared memory, or global when streamed
   int rank, row0, step;
   unsigned seed;
   float cf[6];       // the step's s1 s2 c1 c2 sd mask
@@ -342,7 +385,7 @@ __device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
 // Epilogue of one item: 8 columns [col, col+8) of the rank's slice, row r; v holds the
 // float32 sums with the bias added. `bf` (row stride ld) is the rank's slice of the
 // destination operand buffer for the broadcast kinds.
-template <typename T, int E>
+template <typename T, int E, bool S>
 __device__ __forceinline__ void epilogue(Ctx<T>& c, int r, int col, float (&v)[8], T* bf,
                                          int ld) {
   const int HC = c.p.HC;
@@ -383,19 +426,45 @@ __device__ __forceinline__ void epilogue(Ctx<T>& c, int r, int col, float (&v)[8
     if (E == E_BCAST_GELU) v[k] = gelu_tanh(v[k]);
     if (E == E_BCAST_SILU) v[k] = silu(v[k]);
   }
-  Operand<T>::broadcast8(bf + r * ld + col, v);
+  put8<T, S>(bf + r * ld + col, v);
 }
 
-// One product: the rank's NT n-tiles (8 columns each) of A (TB x KSTEP KS, shared, row
-// stride lda elements) @ W + bias, then the epilogue E. Ends without a block barrier: the
-// caller puts a cluster barrier (when peers read what it wrote) or nothing before the next
-// product, whose partials go to the other buffer and whose first piece ends in a barrier.
-template <typename T, int E>
+// One k-step's A fragment (16 rows x 32 bytes) of a product. Resident: ldmatrix.x4 from
+// shared memory at a_row (lane i gives row i % 16 of half i / 16). Streamed: the same
+// fragment, word lane % 4 of rows lane / 4 and + 8 in each 16-byte half, from the arena at
+// a_g through L2 (ld.global.cg: the peers' writes are ordered by the cluster barrier, and
+// L1 is not coherent across the cluster's SMs).
+template <bool S>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t a_row, const char* a_g,
+                                       int row_bytes, int kk) {
+  if constexpr (S) {
+    const char* q = a_g + kk * 32;
+    a[0] = __ldcg(reinterpret_cast<const unsigned*>(q));
+    a[1] = __ldcg(reinterpret_cast<const unsigned*>(q + 8 * row_bytes));
+    a[2] = __ldcg(reinterpret_cast<const unsigned*>(q + 16));
+    a[3] = __ldcg(reinterpret_cast<const unsigned*>(q + 8 * row_bytes + 16));
+  } else {
+    ldmatrix_x4(a, a_row + kk * 32);
+  }
+}
+
+// One product: the rank's NT n-tiles (8 columns each) of A (TB x KSTEP KS, row stride lda
+// elements; shared memory, or the arena when S) @ W + bias, then the epilogue E. Ends
+// without a block barrier: the caller puts a cluster barrier (when peers read what it
+// wrote) or nothing before the next product, whose partials go to the other buffer and
+// whose first piece ends in a barrier.
+template <typename T, int E, bool S>
 __device__ void product(Ctx<T>& c, const T* A, int lda, int KS, int NT, T* bf = nullptr,
                         int ld = 0) {
   using Op = Operand<T>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const uint32_t a_row = smem_addr(A) + (lane & 15) * lda * (int)sizeof(T) + (lane >> 4) * 16;
+  const int row_bytes = lda * (int)sizeof(T);
+  uint32_t a_row = 0;
+  const char* a_g = nullptr;
+  if constexpr (S)
+    a_g = reinterpret_cast<const char*>(A) + (lane >> 2) * row_bytes + 4 * (lane & 3);
+  else
+    a_row = smem_addr(A) + (lane & 15) * row_bytes + (lane >> 4) * 16;
   for (int n0 = 0; n0 < NT; n0 += CHUNK_TILES) {
     const int ntc = min(CHUNK_TILES, NT - n0);
     const int wn_count = ntc >= 8 ? 8 : ntc >= 4 ? 4 : ntc >= 2 ? 2 : 1;
@@ -431,7 +500,7 @@ __device__ void product(Ctx<T>& c, const T* A, int lda, int KS, int NT, T* bf = 
         uint2 b[UNROLL][MAX_TILES];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-          ldmatrix_x4(a[u], a_row + (kk + u * wk_count) * 32);
+          load_a<S>(a[u], a_row, a_g, row_bytes, kk + u * wk_count);
 #pragma unroll
           for (int i = 0; i < MAX_TILES; ++i) {
             const int nt = min(wn + i * wn_count, ntc - 1);
@@ -449,7 +518,7 @@ __device__ void product(Ctx<T>& c, const T* A, int lda, int KS, int NT, T* bf = 
       }
       for (; kk < kend; kk += wk_count) {
         uint32_t a[4];
-        ldmatrix_x4(a, a_row + kk * 32);
+        load_a<S>(a, a_row, a_g, row_bytes, kk);
         const typename Op::A af = Op::split(a);
 #pragma unroll
         for (int i = 0; i < MAX_TILES; ++i) {
@@ -488,23 +557,27 @@ __device__ void product(Ctx<T>& c, const T* A, int lda, int KS, int NT, T* bf = 
         v[0] += p0.x, v[1] += p0.y, v[2] += p0.z, v[3] += p0.w;
         v[4] += p1.x, v[5] += p1.y, v[6] += p1.z, v[7] += p1.w;
       }
-      epilogue<T, E>(c, r, col, v, bf, ld);
+      epilogue<T, E, S>(c, r, col, v, bf, ld);
     }
   }
 }
 
-// x = LN(h) * (1 + scale) + shift for the rank's h-columns, into every CTA's xb (rounded
-// to bf16 in the bf16 kernels). Half-warp r (of warp r / 2) handles row r, 8 columns a lane.
-// Each rank's (row sum, squared deviations from its own mean) go to every CTA; after a
-// cluster barrier the row's mean and variance over all H columns are combined from them
+// x = LN(h) * (1 + scale) + shift for the rank's h-columns, into xb (every CTA's, or the
+// arena's; rounded to bf16 in the bf16 kernels). Half-warp r (of warp r / 2) handles row
+// r, 8 columns a lane. Each rank's (row sum, squared deviations from its own mean) go to
+// every CTA; after a cluster barrier the row's mean and variance are combined from them
 // (Chan et al.'s pairwise update), as LayerNorm's two passes compute them. Called after a
 // block barrier that follows the writes of hf and mf; ends in a cluster barrier, so xb is
 // whole. Every read of st precedes the second barrier, which precedes the next adaLN's
 // writes of it; every read of xb precedes the next adaLN's first barrier.
-constexpr int MAX_HC = 8 * 16;  // one group of 8 columns per lane of a half-warp
+//
+// adaln_whole: every column of the kernel's width is the model's, and a lane's 8 columns
+// of a rank's slice (at most 128 of them) stay in registers: the resident plan at a width
+// that needs no padding.
+constexpr int ADALN_PASS = 8 * 16;  // columns of one pass: 8 a lane of a half-warp
 
 template <typename T>
-__device__ void adaln(Ctx<T>& c, cg::cluster_group& cluster) {
+__device__ void adaln_whole(Ctx<T>& c, cg::cluster_group& cluster) {
   const int lane = threadIdx.x & 31, col = 8 * (lane & 15);
   const int r = 2 * (threadIdx.x >> 5) + (lane >> 4);
   const int HC = c.p.HC;
@@ -560,33 +633,110 @@ __device__ void adaln(Ctx<T>& c, cg::cluster_group& cluster) {
   cluster.sync();
 }
 
-template <typename T, int V>  // V 1: v1 algebra, 2: v2
+// adaln_masked: the LayerNorm is over the model's Hr columns. Rank q's real columns are
+// the first n_q = clamp(Hr - q HC, 0, HC) of its slice (the kernel's width H pads the
+// model's with zero columns at the end); the padded ones enter no sum and are written as
+// 0. Passes of ADALN_PASS columns, read from shared memory each time: the streamed plan's
+// slices may be wider than one pass.
+__device__ __forceinline__ int real_columns(int Hr, int HC, int q) {
+  return min(max(Hr - q * HC, 0), HC);
+}
+
+template <typename T, bool S>
+__device__ void adaln_masked(Ctx<T>& c, cg::cluster_group& cluster) {
+  const int lane = threadIdx.x & 31;
+  const int r = 2 * (threadIdx.x >> 5) + (lane >> 4);
+  const int HC = c.p.HC, Hr = c.a.Hr, own = real_columns(Hr, HC, c.rank);
+  const int col0 = 8 * (lane & 15);
+  const float* hrow = c.hf + r * HC;
+  float s = 0.f;
+  for (int col = col0; col < HC; col += ADALN_PASS) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (col + k < own) s += hrow[col + k];
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  const float own_mean = own > 0 ? s / own : 0.f;
+  float m2 = 0.f;
+  for (int col = col0; col < HC; col += ADALN_PASS) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (col + k < own) m2 += (hrow[col + k] - own_mean) * (hrow[col + k] - own_mean);
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) m2 += __shfl_xor_sync(0xffffffffu, m2, o);
+  if ((lane & 15) == 0) {
+    const float2 stat = make_float2(s, m2);
+#pragma unroll
+    for (int q = 0; q < CLUSTER; ++q) *cluster.map_shared_rank(c.st + c.rank * TB + r, q) = stat;
+  }
+  cluster.sync();
+  float total = 0.f;
+#pragma unroll
+  for (int q = 0; q < CLUSTER; ++q) total += c.st[q * TB + r].x;
+  const float mean = total / Hr;
+  float var = 0.f;
+#pragma unroll
+  for (int q = 0; q < CLUSTER; ++q) {
+    const int n = real_columns(Hr, HC, q);
+    if (n > 0) {
+      const float2 e = c.st[q * TB + r];
+      const float d = e.x / n - mean;
+      var += e.y + n * d * d;
+    }
+  }
+  const float rstd = rsqrtf(var / Hr + LN_EPS);
+  const float* m = c.mf + r * 2 * HC;
+  for (int col = col0; col < HC; col += ADALN_PASS) {
+    float x[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      x[k] = col + k < own
+                 ? (hrow[col + k] - mean) * rstd * (1.f + m[col + k]) + m[HC + col + k]
+                 : 0.f;
+    put8<T, S>(c.xb + r * c.p.ldh + c.rank * HC + col, x);
+  }
+  cluster.sync();
+}
+
+template <typename T, bool S>
+__device__ __forceinline__ void adaln(Ctx<T>& c, cg::cluster_group& cluster) {
+  if (!S && c.a.Hr == c.a.H)
+    adaln_whole(c, cluster);
+  else
+    adaln_masked<T, S>(c, cluster);
+}
+
+template <typename T, int V, bool S>  // V 1: v1 algebra, 2: v2; S: the streamed plan
 __global__ void __launch_bounds__(THREADS, 1) denoise_sweep_cluster_kernel(Args a) {
   extern __shared__ __align__(128) char smem[];
   constexpr int KSTEP = Operand<T>::KSTEP;
   cg::cluster_group cluster = cg::this_cluster();
   Ctx<T> c;
   c.a = a;
-  c.p = make_plan<T>(a.D, a.H);
+  c.p = make_plan<T, S>(a.D, a.H);
   const Plan& p = c.p;
+  c.rank = (int)cluster.block_rank();
+  const int cluster_id = (int)(blockIdx.x / CLUSTER);
+  char* ops = S ? a.arena + (size_t)cluster_id * p.arena : smem;
   c.ring = smem;
   c.bars = smem_addr(smem + p.bars);
   c.red = reinterpret_cast<float*>(smem + p.red);
-  c.zb = reinterpret_cast<T*>(smem + p.zb);
-  c.scb = reinterpret_cast<T*>(smem + p.scb);
-  c.xb = reinterpret_cast<T*>(smem + p.xb);
-  c.mb = reinterpret_cast<T*>(smem + p.mb);
   c.hf = reinterpret_cast<float*>(smem + p.hf);
   c.mf = reinterpret_cast<float*>(smem + p.mf);
   c.st = reinterpret_cast<float2*>(smem + p.st);
-  c.zs = reinterpret_cast<float*>(smem + p.zs);
-  c.table = reinterpret_cast<const uint2*>(smem + p.table);
-  c.rank = (int)cluster.block_rank();
-  c.row0 = (int)(blockIdx.x / CLUSTER) * TB;
+  c.zb = reinterpret_cast<T*>(ops + p.zb);
+  c.scb = reinterpret_cast<T*>(ops + p.scb);
+  c.xb = reinterpret_cast<T*>(ops + p.xb);
+  c.mb = reinterpret_cast<T*>(ops + p.mb);
+  c.zs = reinterpret_cast<float*>(ops + p.zs) + (S ? c.rank * TB * p.DC : 0);
+  c.table = S ? a.pieces + (size_t)c.rank * a.P : reinterpret_cast<const uint2*>(smem + p.table);
+  c.row0 = cluster_id * TB;
   c.seed = a.stochastic ? (unsigned)(*a.seed & 0xFFFFFFFFll) : 0u;
   c.pc = c.pc0 = c.issued = c.chunks = 0;
   c.total = a.K * a.P;
-  const int H = a.H, D = a.D, L = a.L, HC = p.HC, DC = p.DC;
+  const int H = a.H, Hr = a.Hr, D = a.D, L = a.L, HC = p.HC, DC = p.DC;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s)
@@ -594,15 +744,19 @@ __global__ void __launch_bounds__(THREADS, 1) denoise_sweep_cluster_kernel(Args 
                    : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int i = threadIdx.x; i < a.P; i += THREADS)
-    const_cast<uint2*>(c.table)[i] = a.pieces[(size_t)c.rank * a.P + i];
-  // The whole latent's operand copy, and this rank's float32 columns of it. Rows past B
-  // (the ragged edge) compute on zeros and are never stored.
+  if (!S)
+    for (int i = threadIdx.x; i < a.P; i += THREADS)
+      const_cast<uint2*>(c.table)[i] = a.pieces[(size_t)c.rank * a.P + i];
+  // The latent's operand copy (the whole of it in every CTA; in the arena each rank writes
+  // its own columns), and this rank's float32 columns of it. Rows past B (the ragged edge)
+  // compute on zeros and are never stored.
   for (int i = threadIdx.x; i < TB * p.Dp; i += THREADS) {
     const int r = i / p.Dp, col = i % p.Dp, row = c.row0 + r;
+    const bool own = col / DC == c.rank;
+    if (S && !own) continue;
     const float v = (row < a.B && col < D) ? a.z0[(size_t)row * D + col] : 0.f;
     c.zb[r * p.ldz + col] = Operand<T>::from(v);
-    if (col / DC == c.rank) c.zs[r * DC + col % DC] = v;
+    if (own) c.zs[r * DC + col % DC] = v;
   }
   __syncthreads();
   refill(c);
@@ -611,48 +765,58 @@ __global__ void __launch_bounds__(THREADS, 1) denoise_sweep_cluster_kernel(Args 
   const int pad = ROW_PAD / (int)sizeof(T);
   const int ksh = H / KSTEP, nth = HC / 8, ntm = 2 * HC / 8, ld4 = 4 * H + pad;
   const int ld1 = p.NP1 + pad, nc1 = p.NP1 / CLUSTER;
+  // silu(cond) over the kernel's H columns, 0 past the model's Hr: every rank computes all
+  // of them into its own copy (resident), or its own HC columns into the arena (streamed).
+  const int sc_span = S ? HC : H, sc_base = S ? c.rank * HC : 0;
   for (int s = 0; s < a.K; ++s) {
     c.step = s;
     c.pc0 = s * a.P;
 #pragma unroll
     for (int k = 0; k < 6; ++k) c.cf[k] = __ldg(a.coeffs + s * 8 + k);
-    // silu(cond), all H columns, computed by every rank.
-    const float* te = a.t_embs + (size_t)s * H;
-    for (int i = threadIdx.x; i < TB * H / 2; i += THREADS) {
-      const int r = i / (H / 2), col = 2 * (i % (H / 2)), row = c.row0 + r;
-      const float e0 = row < a.B ? a.obs_emb[(size_t)row * H + col] : 0.f;
-      const float e1 = row < a.B ? a.obs_emb[(size_t)row * H + col + 1] : 0.f;
-      Operand<T>::store2(c.scb + r * p.ldh + col, silu(e0 + te[col]), silu(e1 + te[col + 1]));
+    const float* te = a.t_embs + (size_t)s * Hr;
+    for (int i = threadIdx.x; i < TB * sc_span / 2; i += THREADS) {
+      const int r = i / (sc_span / 2), col = sc_base + 2 * (i % (sc_span / 2)), row = c.row0 + r;
+      float v[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float e = row < a.B && col + k < Hr ? a.obs_emb[(size_t)row * Hr + col + k] : 0.f;
+        v[k] = col + k < Hr ? silu(e + te[col + k]) : 0.f;
+      }
+      Operand<T>::store2(c.scb + r * p.ldh + col, v[0], v[1]);
     }
-    __syncthreads();
+    if (S)
+      cluster.sync();  // the peers' columns of silu(cond)
+    else
+      __syncthreads();
     // hf and mf are the rank's own: a block barrier orders their writes before adaln's
     // reads, and adaln's cluster barriers its reads before the next writes. Every read of
-    // mb and zb precedes a cluster barrier that precedes the next write of it by any rank.
-    product<T, E_STORE_H>(c, c.zb, p.ldz, p.Dp / KSTEP, nth);           // latent_proj
+    // mb, scb and zb precedes a cluster barrier that precedes the next write of it by any
+    // rank.
+    product<T, E_STORE_H, S>(c, c.zb, p.ldz, p.Dp / KSTEP, nth);        // latent_proj
     for (int l = 0; l < L; ++l) {
-      product<T, E_MOD>(c, c.scb, p.ldh, ksh, ntm);                     // mod1 / site 2l
+      product<T, E_MOD, S>(c, c.scb, p.ldh, ksh, ntm);                  // mod1 / site 2l
       __syncthreads();
-      adaln(c, cluster);
+      adaln<T, S>(c, cluster);
       if (V == 1) {
-        product<T, E_BCAST>(c, c.xb, p.ldh, ksh, nth, c.mb + c.rank * HC, p.ldh);  // v_proj
+        product<T, E_BCAST, S>(c, c.xb, p.ldh, ksh, nth, c.mb + c.rank * HC, p.ldh);  // v_proj
         cluster.sync();
-        product<T, E_ADD_H>(c, c.mb, p.ldh, ksh, nth);                  // out_proj
+        product<T, E_ADD_H, S>(c, c.mb, p.ldh, ksh, nth);               // out_proj
       } else {
-        product<T, E_ADD_H>(c, c.xb, p.ldh, ksh, nth);                  // x @ (Wv Wo)
+        product<T, E_ADD_H, S>(c, c.xb, p.ldh, ksh, nth);               // x @ (Wv Wo)
       }
-      product<T, E_MOD>(c, c.scb, p.ldh, ksh, ntm);                     // mod2 / site 2l+1
+      product<T, E_MOD, S>(c, c.scb, p.ldh, ksh, ntm);                  // mod2 / site 2l+1
       __syncthreads();
-      adaln(c, cluster);
-      product<T, E_BCAST_GELU>(c, c.xb, p.ldh, ksh, 4 * nth, c.mb + c.rank * 4 * HC, ld4);
+      adaln<T, S>(c, cluster);
+      product<T, E_BCAST_GELU, S>(c, c.xb, p.ldh, ksh, 4 * nth, c.mb + c.rank * 4 * HC, ld4);
       cluster.sync();
-      product<T, E_ADD_H>(c, c.mb, ld4, 4 * H / KSTEP, nth);            // fc2
+      product<T, E_ADD_H, S>(c, c.mb, ld4, 4 * H / KSTEP, nth);         // fc2
     }
-    product<T, E_MOD>(c, c.scb, p.ldh, ksh, ntm);                       // final / site 2L
+    product<T, E_MOD, S>(c, c.scb, p.ldh, ksh, ntm);                    // final / site 2L
     __syncthreads();
-    adaln(c, cluster);
-    product<T, E_BCAST_SILU>(c, c.xb, p.ldh, ksh, nc1 / 8, c.mb + c.rank * nc1, ld1);
+    adaln<T, S>(c, cluster);
+    product<T, E_BCAST_SILU, S>(c, c.xb, p.ldh, ksh, nc1 / 8, c.mb + c.rank * nc1, ld1);
     cluster.sync();
-    product<T, E_SCORE>(c, c.mb, ld1, p.NP1 / KSTEP, DC / 8, c.zb + c.rank * DC, p.ldz);
+    product<T, E_SCORE, S>(c, c.mb, ld1, p.NP1 / KSTEP, DC / 8, c.zb + c.rank * DC, p.ldz);
     cluster.sync();  // z's operand copy is whole again; after the last step, the final barrier
   }
   for (int i = threadIdx.x; i < TB * DC; i += THREADS) {
@@ -661,7 +825,7 @@ __global__ void __launch_bounds__(THREADS, 1) denoise_sweep_cluster_kernel(Args 
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, bool S>
 cudaLaunchConfig_t config(int B, size_t smem_bytes, cudaStream_t stream,
                           cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
@@ -678,42 +842,63 @@ cudaLaunchConfig_t config(int B, size_t smem_bytes, cudaStream_t stream,
   return cfg;
 }
 
-template <typename T, int V>
+template <typename T, int V, bool S>
 int prepare(size_t smem_bytes) {
-  return (int)cudaFuncSetAttribute(denoise_sweep_cluster_kernel<T, V>,
+  return (int)cudaFuncSetAttribute(denoise_sweep_cluster_kernel<T, V, S>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
 }
 
-template <typename T, int V>
-int launch(const Args& a, size_t smem_bytes, cudaStream_t stream) {
-  if (a.B <= 0 || a.K <= 0 || a.P <= 0 || a.P > MAX_PIECES || a.H % (8 * CLUSTER) != 0 ||
-      a.H / CLUSTER > MAX_HC || smem_bytes != make_plan<T>(a.D, a.H).bytes)
+template <typename T, int V, bool S>
+int launch_plan(const Args& a, size_t smem_bytes, cudaStream_t stream) {
+  const Plan p = make_plan<T, S>(a.D, a.H);
+  if (smem_bytes != p.bytes || (S && a.arena == nullptr) ||
+      (!S && (a.P > MAX_PIECES || p.HC > ADALN_PASS)))
     return (int)cudaErrorInvalidValue;
-  int err = prepare<T, V>(smem_bytes);
+  int err = prepare<T, V, S>(smem_bytes);
   if (err) return err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config<T, V>(a.B, smem_bytes, stream, attr);
-  cudaLaunchKernelEx(&cfg, denoise_sweep_cluster_kernel<T, V>, a);
+  const cudaLaunchConfig_t cfg = config<T, V, S>(a.B, smem_bytes, stream, attr);
+  cudaLaunchKernelEx(&cfg, denoise_sweep_cluster_kernel<T, V, S>, a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int V>
+int launch(const Args& a, int streamed, size_t smem_bytes, cudaStream_t stream) {
+  if (a.B <= 0 || a.K <= 0 || a.P <= 0 || a.H % (8 * CLUSTER) != 0 || a.Hr > a.H ||
+      a.Hr <= a.H - 8 * CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  return streamed ? launch_plan<T, V, true>(a, smem_bytes, stream)
+                  : launch_plan<T, V, false>(a, smem_bytes, stream);
+}
+
+template <typename T, int V, bool S>
 int max_clusters(size_t smem_bytes, int* count) {
-  int err = prepare<T, V>(smem_bytes);
+  int err = prepare<T, V, S>(smem_bytes);
   if (err) return err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config<T, V>(TB * 132, smem_bytes, nullptr, attr);
-  return (int)cudaOccupancyMaxActiveClusters(count, (void*)denoise_sweep_cluster_kernel<T, V>,
+  const cudaLaunchConfig_t cfg = config<T, V, S>(TB * 132, smem_bytes, nullptr, attr);
+  return (int)cudaOccupancyMaxActiveClusters(count, (void*)denoise_sweep_cluster_kernel<T, V, S>,
                                              &cfg);
 }
 
+template <typename T>
+int max_clusters_of(int variant, int streamed, size_t smem_bytes, int* count) {
+  if (streamed)
+    return variant == 1 ? max_clusters<T, 1, true>(smem_bytes, count)
+                        : max_clusters<T, 2, true>(smem_bytes, count);
+  return variant == 1 ? max_clusters<T, 1, false>(smem_bytes, count)
+                      : max_clusters<T, 2, false>(smem_bytes, count);
+}
+
 Args make_args(const float* z0, const float* obs_emb, const float* t_embs, const float* coeffs,
-               const void* wk, const uint2* pieces, const long long* seed, float* out, int B,
-               int D, int H, int L, int K, int P, float mult, int stochastic) {
+               const void* wk, const uint2* pieces, const long long* seed, float* out,
+               void* arena, int B, int D, int H, int Hr, int L, int K, int P, float mult,
+               int stochastic) {
   Args a;
   a.z0 = z0, a.obs_emb = obs_emb, a.t_embs = t_embs, a.coeffs = coeffs;
   a.wk = wk, a.pieces = pieces, a.seed = seed, a.out = out;
-  a.B = B, a.D = D, a.H = H, a.L = L, a.K = K, a.P = P;
+  a.arena = static_cast<char*>(arena);
+  a.B = B, a.D = D, a.H = H, a.Hr = Hr, a.L = L, a.K = K, a.P = P;
   a.mult = mult, a.stochastic = stochastic;
   return a;
 }
@@ -723,15 +908,18 @@ Args make_args(const float* z0, const float* obs_emb, const float* t_embs, const
 // Each sweep entry point launches its kernel on `stream` as clusters of CLUSTER CTAs, one
 // cluster per 16 batch rows, and returns cudaGetLastError() after the launch (0 = success).
 // `wk` and `pieces` are the pack's kernel-order weights (biases included) and piece table
-// (CLUSTER x P); smem_bytes must equal the kernel's own plan.
+// (CLUSTER x P); H is the kernel's hidden width (a multiple of 8 x CLUSTER) and Hr the
+// model's (H - 8 x CLUSTER < Hr <= H), the row stride of obs_emb and t_embs. `streamed`
+// selects the plan (0 resident, 1 streamed, with `arena` of Plan::arena bytes per
+// cluster); smem_bytes must equal that plan's own.
 #define AID_SWEEP(NAME, T, V)                                                                  \
   int NAME(const float* z0, const float* obs_emb, const float* t_embs, const float* coeffs,   \
-           const void* wk, const uint2* pieces, const long long* seed, float* out, int B,      \
-           int D, int H, int L, int K, int P, float mult, int stochastic, size_t smem_bytes,   \
-           cudaStream_t stream) {                                                             \
-    return launch<T, V>(make_args(z0, obs_emb, t_embs, coeffs, wk, pieces, seed, out, B, D, H, \
-                                  L, K, P, mult, stochastic),                                 \
-                        smem_bytes, stream);                                                  \
+           const void* wk, const uint2* pieces, const long long* seed, float* out,             \
+           void* arena, int B, int D, int H, int Hr, int L, int K, int P, float mult,          \
+           int stochastic, int streamed, size_t smem_bytes, cudaStream_t stream) {             \
+    return launch<T, V>(make_args(z0, obs_emb, t_embs, coeffs, wk, pieces, seed, out, arena,   \
+                                  B, D, H, Hr, L, K, P, mult, stochastic),                    \
+                        streamed, smem_bytes, stream);                                        \
   }
 
 extern "C" {
@@ -742,17 +930,21 @@ AID_SWEEP(aid_denoise_sweep_bf16, __nv_bfloat16, 1)      // v1, bfloat16 weights
 AID_SWEEP(aid_denoise_sweep_v2_bf16, __nv_bfloat16, 2)   // v2, bfloat16 weights
 
 // How many clusters of the kernel (variant 1 or 2; bf16 0 for float32 weights, 1 for
-// bfloat16) with this shared memory can be resident at once on the current device
-// (cudaOccupancyMaxActiveClusters), into *count.
-int aid_sweep_max_clusters(int variant, int bf16, size_t smem_bytes, int* count) {
-  if (bf16)
-    return variant == 1 ? max_clusters<__nv_bfloat16, 1>(smem_bytes, count)
-                        : max_clusters<__nv_bfloat16, 2>(smem_bytes, count);
-  return variant == 1 ? max_clusters<float, 1>(smem_bytes, count)
-                      : max_clusters<float, 2>(smem_bytes, count);
+// bfloat16; streamed 0 or 1, the plan) with this shared memory can be resident at once on
+// the current device (cudaOccupancyMaxActiveClusters), into *count.
+int aid_sweep_max_clusters(int variant, int bf16, int streamed, size_t smem_bytes, int* count) {
+  return bf16 ? max_clusters_of<__nv_bfloat16>(variant, streamed, smem_bytes, count)
+              : max_clusters_of<float>(variant, streamed, smem_bytes, count);
 }
 
 int aid_sweep_cluster_size() { return CLUSTER; }
+
+// Bytes of the streamed plan's arena for one cluster (Plan::arena), for the operand type
+// (bf16 0 or 1) and the kernel's widths; ops/denoise.py's arena_bytes mirrors it.
+long long aid_sweep_arena_bytes(int bf16, int D, int H) {
+  return (long long)(bf16 ? make_plan<__nv_bfloat16, true>(D, H).arena
+                          : make_plan<float, true>(D, H).arena);
+}
 
 const char* aid_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

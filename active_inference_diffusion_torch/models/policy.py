@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import LN_EPS
+from .common import LN_EPS, flax_init_, orthogonal_init, xavier_uniform_
 
 
 class PolicyDist(NamedTuple):
@@ -82,6 +82,14 @@ class DiffusionConditionedPolicy(nn.Module):
         self.mean_fc2 = nn.Linear(hidden_dim // 2, action_dim)
         self.std_fc1 = nn.Linear(hidden_dim, hidden_dim // 2)
         self.std_fc2 = nn.Linear(hidden_dim // 2, action_dim)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Flax's initialisation: xavier-uniform kernels, orthogonal on the
+        two output layers, zero biases, unit LayerNorm scales."""
+        flax_init_(self, generator, xavier_uniform_)
+        orthogonal_init(1.0)(self.mean_fc2.weight, generator)
+        orthogonal_init(1.0)(self.std_fc2.weight, generator)
 
     def forward(self, z: torch.Tensor) -> PolicyDist:
         h = self.enc_fc2(F.relu(self.enc_ln(self.enc_fc1(z))))

@@ -4,7 +4,9 @@ Counterpart of ``active_inference_diffusion_tpu/models/score_network.py:35-192``
 Attention runs over a single token, so it is ``out_proj(v_proj(x))``. The
 network keeps the JAX package's split into ``obs_embedding`` /
 ``time_embedding`` / ``trunk`` so the belief sweep can hoist the first two
-out of its K-step loop. Dropout is inactive: this port serves acting only.
+out of its K-step loop. The one dropout, after the observation encoder's
+first block (rate 0.1), runs only where the caller hands in its keep-mask
+(training).
 """
 
 from __future__ import annotations
@@ -15,7 +17,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import LN_EPS, AdaptiveLayerNorm, SinusoidalPositionEmbeddings
+from .common import (
+    LN_EPS,
+    AdaptiveLayerNorm,
+    SinusoidalPositionEmbeddings,
+    dropout,
+    flax_init_,
+    xavier_uniform_,
+)
+
+OBS_DROPOUT = 0.1
 
 
 class SingleTokenAttention(nn.Module):
@@ -89,12 +100,36 @@ class LatentScoreNetwork(nn.Module):
         self.norm_final = AdaptiveLayerNorm(h)
         self.out_fc1 = nn.Linear(h, h // 2)
         self.out_fc2 = nn.Linear(h // 2, latent_dim, bias=False)
+        self.output_scale = output_scale
         self.output_multiplier = nn.Parameter(torch.full((1,), output_scale))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Flax's initialisation: lecun-normal kernels and zero biases, the
+        blocks' MLP xavier-uniform, every adaLN modulation and the score
+        head's last layer zero, unit scales, ``output_multiplier`` at
+        ``output_scale``."""
+        flax_init_(self, generator)
+        for block in self.blocks:
+            xavier_uniform_(block.mlp_fc1.weight, generator)
+            xavier_uniform_(block.mlp_fc2.weight, generator)
+        for module in self.modules():
+            if isinstance(module, AdaptiveLayerNorm):
+                module.adaLN_modulation.weight.zero_()
+        self.out_fc2.weight.zero_()
+        self.time_scale.fill_(1.0)
+        self.time_embed_sin.freq_scale.fill_(1.0)
+        self.output_multiplier.fill_(self.output_scale)
 
     # -- conditioning pieces (hoisted out of the denoise loop) -------------
 
-    def obs_embedding(self, observation: torch.Tensor) -> torch.Tensor:
+    def obs_embedding(
+        self, observation: torch.Tensor, dropout_mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """The observation encoder; ``dropout_mask`` (N, hidden) is the
+        keep-mask of its dropout in training, None in evaluation."""
         x = F.silu(self.obs_ln1(self.obs_fc1(observation)))
+        x = dropout(x, dropout_mask, OBS_DROPOUT)
         x = F.silu(self.obs_ln2(self.obs_fc2(x)))
         return self.obs_ln3(self.obs_fc3(x))
 
@@ -142,10 +177,13 @@ class LatentScoreNetwork(nn.Module):
         observation: Optional[torch.Tensor] = None,
         *,
         continuous: bool = True,
+        obs_dropout_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        """The score; ``obs_dropout_mask`` is the observation encoder's
+        dropout keep-mask in training (the Flax module's ``train=True``)."""
         t_emb = self.time_embedding(time, continuous=continuous)
         if observation is not None:
-            obs_emb = self.obs_embedding(observation)
+            obs_emb = self.obs_embedding(observation, obs_dropout_mask)
         else:
             obs_emb = torch.zeros(
                 (z_t.shape[0], self.hidden_dim), dtype=z_t.dtype, device=z_t.device

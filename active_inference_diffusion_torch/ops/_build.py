@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each source under ``csrc/`` (``denoise_sweep_cluster.cu``: the four sweep
-kernels, v1 and v2 with float32 or bfloat16 weights; it includes
+kernels, v1 and v2 with float32 or bfloat16 weights, each in a resident and
+a streamed plan; it includes
 ``sweep_common.cuh``) has a plain C interface. It is compiled with ``nvcc`` for ``sm_90a`` into its own shared library
 ``build/aid_torch_kernels/lib<name>.so`` at the repository root, on first
 use, and rebuilt whenever its source, the shared header or the flags change
@@ -96,20 +97,23 @@ def load_library(name: str) -> ctypes.CDLL:
     signatures declared."""
     lib = ctypes.CDLL(str(build()[name]))
     p, i = ctypes.c_void_p, ctypes.c_int
-    # z0, obs_emb, t_embs, coeffs, kernel weights, pieces, seed, out,
-    # B D H L K P, mult, stochastic, smem, stream
-    sweep = [p] * 8 + [i] * 6 + [ctypes.c_float, i, ctypes.c_size_t, p]
+    # z0, obs_emb, t_embs, coeffs, kernel weights, pieces, seed, out, arena,
+    # B D H Hr L K P, mult, stochastic, streamed, smem, stream
+    sweep = [p] * 9 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_size_t, p]
     signatures = {
         "aid_denoise_sweep": sweep,
         "aid_denoise_sweep_v2": sweep,
         "aid_denoise_sweep_bf16": sweep,
         "aid_denoise_sweep_v2_bf16": sweep,
-        "aid_sweep_max_clusters": [i, i, ctypes.c_size_t, p],  # variant, bf16, smem, count
+        # variant, bf16, streamed, smem, count
+        "aid_sweep_max_clusters": [i, i, i, ctypes.c_size_t, p],
         "aid_sweep_cluster_size": [],
     }
     for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
+    lib.aid_sweep_arena_bytes.argtypes = [i, i, i]  # bf16, latent, kernel's hidden
+    lib.aid_sweep_arena_bytes.restype = ctypes.c_longlong
     lib.aid_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aid_cuda_error_string.restype = ctypes.c_char_p
     return lib

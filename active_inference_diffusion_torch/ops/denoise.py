@@ -12,13 +12,18 @@ head), the score clip and the p_sample update with in-kernel Gaussian noise.
   and type (``KERNELS``; all four from ``csrc/denoise_sweep_cluster.cu``,
   built on first use by ``ops/_build.py``) or raise; for a CPU tensor they
   run ``denoise_sweep_reference``. Launches are counted per kernel in
-  ``LAUNCHES``.
+  ``LAUNCHES``. ``kernel_takes`` is the JAX package's ``fused_sweep_supported``
+  rule (48 MiB of trunk weights): where it refuses a width, the caller runs
+  ``plain_denoise_sweep`` on the card, counted apart in ``PLAIN_RUNS``.
 - The kernels run each 16-row tile on a cluster of ``KERNEL_CLUSTER`` CTAs,
   each owning 1/``KERNEL_CLUSTER`` of every product's output columns, with
   tensor-core products; they read the weights from a second buffer of the
-  pack in their own order (``kernel_layout``). They take hidden widths that
-  are a multiple of 8 x ``KERNEL_CLUSTER`` (64); the latent and out_fc1's
-  width are padded to that multiple with zero weights.
+  pack in their own order (``kernel_layout``). Every width is padded with
+  zero weights to a multiple of 8 x ``KERNEL_CLUSTER`` (64): the hidden
+  width (the adaLN statistics count the real columns only), the latent and
+  out_fc1's width. ``kernel_plan`` picks the resident plan (operand copies
+  in shared memory) where it fits, else the streamed one (operand copies
+  in global memory, one per cluster, read through L2).
 - float32 weights: products accurate to float32 (3xTF32 on the card), no
   rounding anywhere.
 - bfloat16 mode (``compute_dtype="bfloat16"``): the matmul weights (the
@@ -93,8 +98,15 @@ KERNELS = {
     "denoise_sweep_v2_f32": ("v2", torch.float32, _LIBRARY, "aid_denoise_sweep_v2"),
     "denoise_sweep_v2_bf16": ("v2", torch.bfloat16, _LIBRARY, "aid_denoise_sweep_v2_bf16"),
 }
+# Trunk weights the JAX package's fused sweep takes (``fused_sweep_supported``):
+# the kernels take every width within it.
+SWEEP_WEIGHT_BUDGET = 48 * 2**20
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# Plain sweeps run on a CUDA device, for a width beyond ``kernel_takes``
+# (``plain_denoise_sweep``), counted per (variant, weight type) apart from
+# LAUNCHES.
+PLAIN_RUNS: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def kernel_name(variant: str, dtype: torch.dtype) -> str:
@@ -174,12 +186,13 @@ def extract_trunk_weights_v2(w: Dict[str, torch.Tensor]) -> Dict[str, torch.Tens
     as ``extract_trunk_weights_v2`` of the JAX package: ``vo_w = Wv @ Wo``
     and ``vo_b = bv @ Wo + bo`` per block, and all 2L+1 modulation products
     side by side, ``mod_w`` (H, L*4H + 2H) = [mod1_0 | mod2_0 | ... |
-    mod_final]. The products are composed in float32 on the CPU, so no TF32
-    enters whatever the card's matmul flags say."""
+    mod_final]. The products are composed in float64 on the weights' own
+    device and rounded to float32 once, so no TF32 enters whatever the
+    card's matmul flags say, and no weight leaves the card."""
     num_layers = w["v_w"].shape[0]
 
     def compose(a, b):
-        return torch.matmul(a.cpu().float(), b.cpu().float()).to(a.device)
+        return torch.matmul(a.double(), b.double()).float()
 
     mods, bmods = [], []
     for l in range(num_layers):
@@ -283,11 +296,43 @@ def kernel_products(packed: PackedTrunk) -> List[Tuple[torch.Tensor, Optional[to
     return products + [mods[-1], (v["out1_w"], v["out1_b"], False), (v["out2_w"], None, False)]
 
 
+def kernel_shapes(packed: PackedTrunk) -> List[Tuple[int, int]]:
+    """The (in, out) shape the kernels see of each product of
+    ``kernel_products``, in its order: every width padded to a multiple of
+    8 x ``KERNEL_CLUSTER``, the hidden one to ``hp`` (so the MLP's to 4
+    ``hp``, a modulation's to 2 ``hp``), out_fc1's to that multiple of
+    ``hp / 2``."""
+    c8 = 8 * KERNEL_CLUSTER
+    hp, dp = _round_up(packed.hidden_dim, c8), _round_up(packed.latent_dim, c8)
+    np1 = _round_up(hp // 2, c8)
+    attn = [(hp, hp), (hp, hp)] if packed.variant == "v1" else [(hp, hp)]
+    block = [(hp, 2 * hp), *attn, (hp, 2 * hp), (hp, 4 * hp), (4 * hp, hp)]
+    return [(dp, hp), *block * packed.num_layers, (hp, 2 * hp), (hp, np1), (np1, dp)]
+
+
+def embed_product(w: torch.Tensor, b: Optional[torch.Tensor], modulation: bool,
+                  shape: Tuple[int, int], fill) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A product's (in, out) weight and its bias placed in the kernels'
+    padded ``shape``, ``fill`` elsewhere (no bias: all ``fill``): a plain
+    product at the top left, a modulation's scale and shift halves each at
+    the start of its half."""
+    wp = torch.full(shape, fill, dtype=w.dtype)
+    bp = torch.full(shape[1:], fill, dtype=w.dtype)
+    k, n = w.shape
+    halves = ((0, 0, n // 2), (n // 2, shape[1] // 2, n // 2)) if modulation else ((0, 0, n),)
+    for src, dst, width in halves:
+        wp[:k, dst : dst + width] = w[:, src : src + width]
+        if b is not None:
+            bp[dst : dst + width] = b[src : src + width]
+    return wp, bp
+
+
 def rank_columns(out: int, modulation: bool, rank: int) -> torch.Tensor:
     """Output columns of one product that cluster rank ``rank`` computes, in
-    its slice's order. A plain product's columns are padded to a multiple of
-    8 x ``KERNEL_CLUSTER`` (indices >= ``out`` are zero columns) and split in
-    contiguous slices; a modulation's rank takes the scale and the shift
+    its slice's order, for the product's padded width ``out``
+    (``kernel_shapes``; a width that is not yet a multiple of 8 x
+    ``KERNEL_CLUSTER`` is rounded up). A plain product's columns are split
+    in contiguous slices; a modulation's rank takes the scale and the shift
     columns of its own h-columns."""
     c = KERNEL_CLUSTER
     if modulation:
@@ -306,33 +351,58 @@ def _pieces(n_tiles: int, k_steps: int) -> int:
                 if k_steps % p == 0 and n_tiles * (k_steps // p) * _FRAG_BYTES <= budget)
 
 
+# Each pack shape's layout as a gather order (``_layout_order``), per device.
+_LAYOUT_ORDERS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
 def kernel_layout(packed: PackedTrunk) -> KernelLayout:
-    """The kernels' weight order for ``packed`` (see ``KernelLayout``).
+    """The kernels' weight order for ``packed`` (see ``KernelLayout``): one
+    gather from the pack's two buffers, in an order worked out once per
+    pack shape and device (``_layout_order``), since the weights change at
+    every train step and the order does not."""
+    dev = packed.weights.device
+    key = (packed.variant, packed.dtype, packed.latent_dim, packed.hidden_dim,
+           packed.num_layers, dev)
+    if key not in _LAYOUT_ORDERS:
+        order, pieces = _layout_order(packed)
+        _LAYOUT_ORDERS[key] = (order.to(dev), pieces.to(dev))
+    order, pieces = _LAYOUT_ORDERS[key]
+    source = torch.cat([packed.weights, packed.biases.view(packed.dtype),
+                        packed.weights.new_zeros(1)])
+    return KernelLayout(weights=source[order], pieces=pieces)
+
+
+def _layout_order(packed: PackedTrunk) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order, pieces) of the kernels' layout of ``packed``'s shapes:
+    element i of the layout is element ``order[i]`` of [the pack's weights,
+    its float32 biases read as words of the weight type, one zero].
 
     B fragment of mma.sync, 8 contiguous bytes a lane (lane = 4 g + t):
     bfloat16 (m16n8k16, a k-step of 16) W[k0 + 2t + {0, 1, 8, 9}, n0 + g];
     float32 (m16n8k8 tf32, a k-step of 8) W[k0 + t + {0, 4}, n0 + g]. A
     piece is [n-tile][k-step][lane][fragment], after the chunk's 8 x n-tiles
-    float32 biases in its first piece. Input widths are padded with zero rows
-    to a multiple of 8 x ``KERNEL_CLUSTER``, as the kernels' operand copies
-    are."""
+    float32 biases in its first piece. Each product is padded to its
+    ``kernel_shapes`` shape with zeros (``embed_product``), as the kernels'
+    operand copies are."""
     c = KERNEL_CLUSTER
     dtype = packed.dtype
     size = torch.finfo(dtype).bits // 8
     k_step, per_frag = K_STEP[dtype], _FRAG_BYTES // size
-    wparts: List[torch.Tensor] = []
+    n_weights = packed.weights.numel()
+    words = 4 // size  # words of the weight type a float32 bias takes
+    zero = n_weights + words * packed.biases.numel()
+    # the pack with each element's own index in place of its value
+    index = packed._replace(weights=torch.arange(n_weights),
+                            biases=torch.arange(packed.biases.numel()))
+    parts: List[torch.Tensor] = []
     table: List[List[Tuple[int, int]]] = [[] for _ in range(c)]
     cursor = 0
-    for w, b, modulation in kernel_products(packed):
-        k, n = w.shape
-        kp = _round_up(k, 8 * c)
-        wp = w.new_zeros(kp, _round_up(n, 8 * c))
-        wp[:k, :n] = w
-        bp = torch.zeros(wp.shape[1], dtype=torch.float32, device=w.device)
-        if b is not None:
-            bp[:n] = b
+    for (w, b, modulation), shape in zip(kernel_products(index), kernel_shapes(index)):
+        wp, _ = embed_product(w, None, modulation, shape, zero)
+        _, bp = embed_product(w, b, modulation, shape, -1)
+        kp = shape[0]
         for r in range(c):
-            cols = rank_columns(n, modulation, r).to(w.device)
+            cols = rank_columns(shape[1], modulation, r)
             wr = wp[:, cols]
             br = bp[cols]
             n_tiles, k_steps = wr.shape[1] // 8, kp // k_step
@@ -350,14 +420,14 @@ def kernel_layout(packed: PackedTrunk) -> KernelLayout:
                 for q in range(pieces):
                     part = frag[q].reshape(-1)
                     if q == 0:
-                        part = torch.cat([br[8 * n0 : 8 * (n0 + ntc)].view(dtype), part])
+                        bias = br[8 * n0 : 8 * (n0 + ntc), None]
+                        bias = torch.where(bias < 0, zero,
+                                           n_weights + words * bias + torch.arange(words))
+                        part = torch.cat([bias.reshape(-1), part])
                     table[r].append((cursor * size // 16, part.numel() * size))
-                    wparts.append(part)
+                    parts.append(part)
                     cursor += part.numel()
-    return KernelLayout(
-        weights=torch.cat(wparts).contiguous(),
-        pieces=torch.tensor(table, dtype=torch.int32, device=packed.weights.device),
-    )
+    return torch.cat(parts), torch.tensor(table, dtype=torch.int32)
 
 
 def pack_trunk_weights(
@@ -389,7 +459,7 @@ def pack_trunk_weights(
         num_layers=weights["f1_w"].shape[0],
         output_multiplier=float(weights["output_multiplier"].reshape(-1)[0]),
     )
-    if packed.hidden_dim % (8 * KERNEL_CLUSTER) == 0:
+    if kernel_takes(packed.latent_dim, packed.hidden_dim, packed.num_layers, dtype):
         packed = packed._replace(kernel=kernel_layout(packed))
     return packed
 
@@ -415,42 +485,99 @@ def packed_trunk_weights(
     return packed
 
 
-def sweep_smem_bytes(latent_dim: int, hidden_dim: int, dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared memory of one CTA of a kernel's cluster, either variant:
-    the weight ring, its barriers, the piece table, two buffers of split-K
-    partials, operand copies in the weight type of the whole latent (padded
-    to 8 x ``KERNEL_CLUSTER``), silu(cond), the adaLN output and the MLP
-    hidden (rows padded by ``ROW_PAD`` bytes), the rank's float32 slices of
-    the residual stream, of one modulation and of z, and the adaLN
-    statistics (a float2 per rank and row). Mirrors ``make_plan`` in
-    csrc/denoise_sweep_cluster.cu."""
+def trunk_weight_bytes(hidden_dim: int, latent_dim: int, num_layers: int,
+                       bytes_per_param: int = 4) -> int:
+    """Bytes of the v1 trunk's matmul weights, as the JAX package's
+    ``trunk_weight_bytes`` counts them."""
+    h, d, l = hidden_dim, latent_dim, num_layers
+    per_block = h * 2 * h + h * h + h * h + h * 2 * h + h * 4 * h + 4 * h * h
+    total = l * per_block + d * h + h * 2 * h + h * (h // 2) + (h // 2) * d
+    return bytes_per_param * total
+
+
+def kernel_takes(latent_dim: int, hidden_dim: int, num_layers: int, dtype: torch.dtype) -> bool:
+    """Whether the sweep kernels take this width in this weight type: the
+    JAX package's ``fused_sweep_supported`` rule, at most
+    ``SWEEP_WEIGHT_BUDGET`` bytes of trunk weights. Every width within it
+    has a plan (``kernel_plan``); beyond it the caller runs the plain
+    sweep."""
+    size = torch.finfo(dtype).bits // 8
+    return trunk_weight_bytes(hidden_dim, latent_dim, num_layers, size) <= SWEEP_WEIGHT_BUDGET
+
+
+def sweep_smem_bytes(latent_dim: int, hidden_dim: int, dtype: torch.dtype = torch.float32,
+                     streamed: bool = False) -> int:
+    """Dynamic shared memory of one CTA of a kernel's cluster, either variant,
+    at the kernel's (padded) widths. Both plans hold the weight ring, its
+    barriers, two buffers of split-K partials, the rank's float32 slices of
+    the residual stream and of one modulation, and the adaLN statistics (a
+    float2 per rank and row). The resident plan adds the piece table and
+    the operand copies in the weight type (rows padded by ``ROW_PAD``
+    bytes) of the whole latent (padded to 8 x ``KERNEL_CLUSTER``),
+    silu(cond), the adaLN output and the MLP hidden, and the rank's float32
+    slice of z; the streamed plan keeps those in global memory. Mirrors
+    ``make_plan`` in csrc/denoise_sweep_cluster.cu."""
     tb, c = ROWS_PER_CLUSTER, KERNEL_CLUSTER
+    fixed = (STAGES * SLOT_BYTES + 64 + 2 * 4 * tb * (8 * CHUNK_TILES + 8)
+             + 4 * tb * 3 * hidden_dim // c + 8 * c * tb)
+    if streamed:
+        return fixed
     size = torch.finfo(dtype).bits // 8
     d_pad = _round_up(latent_dim, 8 * c)
     out1 = _round_up(hidden_dim // 2, 8 * c)
     operands = (d_pad, hidden_dim, hidden_dim, max(4 * hidden_dim, out1))
-    return (STAGES * SLOT_BYTES + 64 + 8 * MAX_PIECES + 2 * 4 * tb * (8 * CHUNK_TILES + 8)
-            + sum(tb * (size * width + ROW_PAD) for width in operands)
-            + 4 * tb * (3 * hidden_dim // c + d_pad // c) + 8 * c * tb)
+    return (fixed + 8 * MAX_PIECES + sum(tb * (size * width + ROW_PAD) for width in operands)
+            + 4 * tb * d_pad // c)
 
 
-def kernel_smem_bytes(latent_dim: int, hidden_dim: int, variant: str, dtype: torch.dtype) -> int:
-    """The shared memory a sweep kernel's CTA is launched with; raises
-    ValueError for a width its plan cannot take: hidden_dim a multiple of
-    8 x ``KERNEL_CLUSTER`` (64), the plan within ``MAX_SMEM_BYTES``. The
-    latent and out_fc1's width are padded to that multiple."""
+def kernel_smem_bytes(latent_dim: int, hidden_dim: int, variant: str, dtype: torch.dtype,
+                      streamed: bool = False) -> int:
+    """The shared memory a sweep kernel's CTA is launched with at the
+    kernel's widths, in one plan; raises ValueError where that plan cannot
+    take them: hidden_dim a multiple of 8 x ``KERNEL_CLUSTER`` (64; a
+    model's hidden width is padded to it), the plan within
+    ``MAX_SMEM_BYTES``. The latent and out_fc1's width are padded to that
+    multiple."""
     name = kernel_name(variant, dtype)
     step = 8 * KERNEL_CLUSTER
     if hidden_dim % step:
         raise ValueError(f"{name} takes hidden_dim a multiple of {step} (8 columns x its "
                          f"cluster of {KERNEL_CLUSTER} CTAs), got {hidden_dim}")
-    smem = sweep_smem_bytes(latent_dim, hidden_dim, dtype)
+    smem = sweep_smem_bytes(latent_dim, hidden_dim, dtype, streamed)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{name} at latent_dim={latent_dim}, hidden_dim={hidden_dim} needs {smem} bytes "
-            f"of shared memory per block; the kernel's plan allows {MAX_SMEM_BYTES}"
+            f"of shared memory per block in its {'streamed' if streamed else 'resident'} "
+            f"plan; the kernel allows {MAX_SMEM_BYTES}"
         )
     return smem
+
+
+class KernelPlan(NamedTuple):
+    """How a kernel runs one width: the kernel's hidden width (the model's
+    padded to 8 x ``KERNEL_CLUSTER``), whether the operand copies are
+    streamed from global memory, and the shared memory of a CTA."""
+
+    hidden: int
+    streamed: bool
+    smem: int
+
+
+def kernel_plan(packed: PackedTrunk) -> KernelPlan:
+    """The plan of a pack the kernels take: resident where its shared memory
+    and piece table fit, else streamed; raises ValueError for a pack beyond
+    ``kernel_takes`` or without a kernel layout."""
+    name = kernel_name(packed.variant, packed.dtype)
+    if packed.kernel is None:
+        raise ValueError(f"{name}: the pack (latent {packed.latent_dim}, hidden "
+                         f"{packed.hidden_dim}, {packed.num_layers} layers) has no kernel layout: "
+                         f"its trunk is over the kernels' {SWEEP_WEIGHT_BUDGET} bytes")
+    hidden = _round_up(packed.hidden_dim, 8 * KERNEL_CLUSTER)
+    resident = sweep_smem_bytes(packed.latent_dim, hidden, packed.dtype)
+    if resident <= MAX_SMEM_BYTES and packed.kernel.pieces.shape[1] <= MAX_PIECES:
+        return KernelPlan(hidden, False, resident)
+    smem = kernel_smem_bytes(packed.latent_dim, hidden, packed.variant, packed.dtype, True)
+    return KernelPlan(hidden, True, smem)
 
 
 # ---------------------------------------------------------------------------
@@ -637,29 +764,33 @@ def _sweep(variant, schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num
     name = kernel_name(variant, weights.dtype)
     _, _, library, function = KERNELS[name]
     b, d = z0.shape
-    h = obs_emb.shape[-1]
-    smem = kernel_smem_bytes(d, h, variant, weights.dtype)
+    plan = kernel_plan(weights)
     for arg, t in (("z0", z0), ("obs_emb", obs_emb), ("t_embs", t_embs)):
         if not t.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
     layout = weights.kernel
-    if layout is None or layout.pieces.shape[1] > MAX_PIECES:
-        raise ValueError(f"{name}: the pack has no kernel layout of at most {MAX_PIECES} pieces "
-                         "a step")
 
     from ._build import load_library
 
     lib = load_library(library)
     coeffs = sweep_coefficients(schedule, num_steps, deterministic).contiguous()
     out = torch.empty_like(z0)
+    arena = None
+    if plan.streamed:  # one arena per cluster of 16 rows
+        per_cluster = lib.aid_sweep_arena_bytes(int(weights.dtype == torch.bfloat16), d,
+                                                plan.hidden)
+        clusters = -(-b // ROWS_PER_CLUSTER)
+        arena = torch.empty(clusters * per_cluster, dtype=torch.uint8, device=z0.device)
     with torch.cuda.device(z0.device):
         stream = torch.cuda.current_stream(z0.device).cuda_stream
-        _check_clusters(lib, name, variant, weights.dtype, smem, z0.device)
+        _check_clusters(lib, name, variant, weights.dtype, plan, z0.device)
         err = getattr(lib, function)(
             z0.data_ptr(), obs_emb.data_ptr(), t_embs.data_ptr(), coeffs.data_ptr(),
             layout.weights.data_ptr(), layout.pieces.data_ptr(), seed.data_ptr(), out.data_ptr(),
-            b, d, h, num_layers, num_steps, layout.pieces.shape[1], weights.output_multiplier,
-            0 if deterministic else 1, smem, stream,
+            None if arena is None else arena.data_ptr(),
+            b, d, plan.hidden, weights.hidden_dim, num_layers, num_steps, layout.pieces.shape[1],
+            weights.output_multiplier, 0 if deterministic else 1, int(plan.streamed), plan.smem,
+            stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -673,36 +804,62 @@ def _sweep(variant, schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num
 _CLUSTERS_CHECKED: set = set()
 
 
-def _check_clusters(lib, name, variant, dtype, smem, device) -> None:
-    """Before the first launch of a shape: raise unless the library was built
+def _check_clusters(lib, name, variant, dtype, plan: KernelPlan, device) -> None:
+    """Before the first launch of a plan: raise unless the library was built
     for ``KERNEL_CLUSTER`` and the card can hold at least one cluster of it
-    with ``smem`` bytes per CTA (cudaOccupancyMaxActiveClusters). Never falls
-    back to another kernel or cluster size."""
-    key = (name, smem, device)
+    with the plan's shared memory per CTA (cudaOccupancyMaxActiveClusters).
+    Never falls back to another kernel, plan or cluster size."""
+    key = (name, plan.streamed, plan.smem, device)
     if key in _CLUSTERS_CHECKED:
         return
     built = lib.aid_sweep_cluster_size()
     if built != KERNEL_CLUSTER:
         raise RuntimeError(f"{name} was built for clusters of {built}, not {KERNEL_CLUSTER}")
-    count = max_active_clusters(lib, variant, dtype, smem)
+    count = max_active_clusters(lib, variant, dtype, plan.smem, plan.streamed)
     if count < 1:
         raise RuntimeError(
-            f"{name}: the card holds no cluster of {KERNEL_CLUSTER} CTAs with {smem} bytes of "
-            "shared memory each"
+            f"{name}: the card holds no cluster of {KERNEL_CLUSTER} CTAs with {plan.smem} "
+            "bytes of shared memory each"
         )
     _CLUSTERS_CHECKED.add(key)
 
 
-def max_active_clusters(lib, variant: str, dtype: torch.dtype, smem: int) -> int:
-    """Clusters of the kernel of (variant, weight type) with ``smem`` bytes
-    per CTA that the current card holds at once; raises if the query fails."""
+def max_active_clusters(lib, variant: str, dtype: torch.dtype, smem: int,
+                        streamed: bool = False) -> int:
+    """Clusters of the kernel of (variant, weight type, plan) with ``smem``
+    bytes per CTA that the current card holds at once; raises if the query
+    fails."""
     count = ctypes.c_int(0)
     err = lib.aid_sweep_max_clusters(1 if variant == "v1" else 2, int(dtype == torch.bfloat16),
-                                     smem, ctypes.byref(count))
+                                     int(streamed), smem, ctypes.byref(count))
     if err != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
                            f"{lib.aid_cuda_error_string(err).decode()} ({err})")
     return count.value
+
+
+def plain_denoise_sweep(
+    schedule: DiffusionSchedule,
+    weights: PackedTrunk,
+    z0: torch.Tensor,
+    obs_emb: torch.Tensor,
+    t_embs: torch.Tensor,
+    seed: torch.Tensor,
+    num_steps: int,
+    num_layers: int,
+    deterministic: bool = False,
+) -> torch.Tensor:
+    """The sweep as ``denoise_sweep_reference`` on the tensors' own device,
+    for a width beyond ``kernel_takes``. On a CUDA device the run is
+    counted in ``PLAIN_RUNS``; it never stands in for a kernel that
+    failed."""
+    _check_args(schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers)
+    out = denoise_sweep_reference(
+        schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers, deterministic
+    )
+    if z0.device.type == "cuda":
+        PLAIN_RUNS[kernel_name(weights.variant, weights.dtype)] += 1
+    return out
 
 
 def fused_denoise_sweep(

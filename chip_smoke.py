@@ -5,8 +5,10 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version, drives the state agent's acting
-paths (``DiffusionStateAgent.act`` and ``act_warm``) through every kernel,
-and times them. Any failed phase raises, so the script exits non-zero;
+paths (``DiffusionStateAgent.act`` and ``act_warm``) through every kernel
+and the flagship train update (``train_step``) through the float32 ones,
+runs the widths beyond the kernels' 48 MiB of trunk weights through the
+plain sweep on the card, and times them. Any failed phase raises, so the script exits non-zero;
 without a CUDA device it exits non-zero before printing a result. It
 imports no JAX and nothing of the JAX package.
 
@@ -15,7 +17,8 @@ Phases:
 2. build: one ``nvcc`` per source for sm_90a, all started together (one
    source, ``csrc/denoise_sweep_cluster.cu``, holds the four kernels), with
    the build seconds, ptxas's register/spill report and the clusters of 8
-   the card holds at once for each kernel at the two widths.
+   the card holds at once for each kernel at the two widths (resident
+   plan) and at the config's default width (streamed plan).
 3. kernels vs plain version at seeded random weights (every parameter
    normal / sqrt(fan_in), output_multiplier 1.0), each deterministic and
    stochastic with the same seed: v1-f32 at the flagship (B=256 and 1), the
@@ -24,7 +27,10 @@ Phases:
    (K=50 full; v1 also 25 partial), B=8 (one cluster), B=37 (a ragged
    cluster) and B=512, K=10 (two waves of clusters; the K of
    humanoid3d_fused.yaml); v2-f32 at the flagship and the humanoid width
-   (B=256 and 8).
+   (B=256 and 8); v1-f32 at the flagship width, B=512 (the train step's
+   belief sweep); the streamed plan at the config's default width (latent
+   128, hidden 512) in bf16 (v1 B=8, v2 B=37, K=100) and in f32 at hidden
+   300 (v1 B=256, v2 B=512); hidden 96, padded to 128 (f32, B=8 and 37).
 4. main paths, each with every launch count set to 0 just before it and
    read just after; actions finite, (B, A), within [-1, 1]; exactly one
    launch per call of the path's kernel and none of another; eval actions
@@ -36,7 +42,18 @@ Phases:
    c. humanoid_state.yaml (bfloat16, Fokker-Planck refinement), v1-bf16:
       20 + 20 ``act`` calls at batch 256 and at batch 8, then 4
       ``act_warm`` calls at each batch with a ``reset_mask``;
-   d. the same with ``denoiser_kernel="v2"``, v2-bf16.
+   d. the same with ``denoiser_kernel="v2"``, v2-bf16;
+   c1: ``act`` and ``generate_beliefs`` at the widths C1 found refused
+   (``C1_WIDTHS``): beyond the kernels' 48 MiB two plain runs on the card
+   (``PLAIN_RUNS``) and no launch, within it two launches and no plain run;
+   the CPU twin's actions, latents and reconstruction error;
+   e. the flagship train update at batch 256: 5 v1 then 2 v2
+   ``train_step`` calls, one sweep launch each and none of another
+   kernel, every loss finite, every partition moving, the MINE update on
+   every 5th step only; then per variant one deterministic step from
+   fresh states with ``TrainDraws`` shared with the CPU twin, held by
+   ``compare_train_steps``, and for v1 a control step with TF32 products,
+   which must fail the MINE gradient's limit.
 5. times: each kernel against its plain version at its main path's shape
    (CUDA events), and at the other shapes of the timed list; for every row
    the plain version captured once in a CUDA graph and replayed
@@ -47,6 +64,9 @@ Phases:
    port never calls them.
    ``act`` latency (host clock, synchronised) at the flagship (batch 1,
    256) and the humanoid config (batch 8, 256), eval and collect.
+   ``train_step`` at the flagship, batch 256, v1 and v2: median of 10
+   (host clock, synchronised) after 3 warm-up steps, then 5 steps under
+   torch.profiler (device time, the sweep's share, host time per phase).
 6. the kernel summary line, the card line, and the result line.
 """
 
@@ -89,7 +109,48 @@ PARITY_SHAPES = [
     ("denoise_sweep_v2_bf16", "humanoid_b512", 512, 64, 256, 6, 50, 10),
     ("denoise_sweep_v1_f32", "flagship_b1", 1, 32, 128, 6, 25, 25),
     ("denoise_sweep_v2_f32", "humanoid_b8", 8, 64, 256, 6, 50, 50),
+    # the flagship train step's belief sweep: observations and next observations, 2 x 256 rows
+    ("denoise_sweep_v1_f32", "flagship_b512", 512, 32, 128, 6, 25, 25),
+    # the config's default width (latent 128, hidden 512) in bfloat16: the streamed plan
+    ("denoise_sweep_v1_bf16", "default", 8, 128, 512, 6, 100, 100),
+    ("denoise_sweep_v2_bf16", "default_ragged", 37, 128, 512, 6, 100, 100),
+    # hidden 96, padded to the kernels' 128
+    ("denoise_sweep_v1_f32", "h96", 8, 128, 96, 6, 100, 100),
+    ("denoise_sweep_v2_f32", "h96_ragged", 37, 128, 96, 6, 100, 100),
+    # float32 streamed: hidden 300 padded to 320, one wave and two of clusters
+    ("denoise_sweep_v1_f32", "h300", 256, 32, 300, 6, 25, 25),
+    ("denoise_sweep_v2_f32", "h300_b512", 512, 32, 300, 6, 25, 10),
 ]
+# The widths C1 found refused, at the config's 6 blocks. (latent, hidden,
+# compute_dtype); batch 8, K=100 (the halfcheetah_state.yaml schedule; the
+# default 1000 steps would only lengthen the CPU twin's run). Beyond the
+# kernels' 48 MiB of trunk weights (the JAX core's fused-sweep rule) the card
+# runs the plain sweep: the config's default (latent 128, hidden 512) and
+# hidden 384 in float32. Within it the kernel runs: the default in bfloat16
+# (streamed plan) and hidden 96 in float32 (padded to 128).
+C1_STEPS = 100
+C1_WIDTHS = {(128, 512, "float32"): "plain", (128, 384, "float32"): "plain",
+             (128, 512, "bfloat16"): "kernel", (128, 96, "float32"): "kernel"}
+# Train steps of the flagship path: stochastic-belief steps counted, and
+# deterministic steps held against the CPU twin, per variant.
+TRAIN_STEPS = {"v1": 5, "v2": 2}
+# Card against CPU twin in one train update: the CPU parity tests' rule
+# (tests/test_torch_train.py) for the losses, rtol 2e-4 / atol 2e-5, and
+# the updated parameters, rtol 2e-4 / atol 2e-5 plus 2 lr where the two
+# gradients' signs differ (Adam's first step moves an element by about
+# lr sign(g)), with fewer than 1 in 100 elements of a partition under that
+# rule. The gradients, as Adam's first moments (0.1 g), are held by their
+# relative L2 distance per partition rather than elementwise: at B=256 a few
+# of the relu/clamp kinks among some 10^6 activations fall on the other side
+# between two orders of float32 summation, so an element here and there
+# differs by more than 2e-4 (on an NVIDIA H100: up to 1.1x that for the
+# policy, relative L2 3.2e-5): MOMENT_REL_L2. The MINE head's gradient at
+# these latents (|z| up to ~10) is only as accurate as float32 makes it,
+# relative L2 5.1e-3 from float64 on the CPU (tools/mine_conditioning.py),
+# and 1.7e-3 (v1) and 1.4e-4 (v2) card against CPU on an H100: MINE_REL_L2.
+# A control step with TF32 products on the card must fail it.
+TRAIN_RTOL, TRAIN_ATOL, MOMENT_REL_L2, MINE_REL_L2 = 2e-4, 2e-5, 1e-4, 5e-3
+TRAIN_TIMED, TRAIN_WARMUP = 10, 3
 # Kernel vs plain sweep, elementwise |kernel - plain| <= atol + rtol |plain|.
 # float32: another summation order, compounded over up to 100 dependent
 # steps of 6 blocks. bfloat16 weights: the same rounding sites on both
@@ -131,14 +192,47 @@ def nvidia_smi() -> str:
 
 def randomize(module: torch.nn.Module, seed: int) -> None:
     """Seeded normal weights scaled by 1/sqrt(fan_in) (1/sqrt(n) for
-    vectors); output_multiplier 1.0, so the score head is not near zero."""
+    vectors, 1 for scalars); output_multiplier 1.0, so the score head is not
+    near zero."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
-            fan_in = p.shape[-1] if p.dim() == 2 else p.shape[0]
+            fan_in = p.shape[-1] if p.dim() >= 2 else p.numel()
             p.copy_(torch.randn(p.shape, generator=gen) / fan_in**0.5)
             if name.endswith("output_multiplier"):
                 p.fill_(1.0)
+
+
+def flagship_config():
+    """The flagship configuration (bench.py:235-238, :282-295): HalfCheetah-v4,
+    batch 256, latent 32, hidden 128, 6 DiT blocks, K=25 cosine, kl_weight
+    0.5, every other flag at the config's default."""
+    from active_inference_diffusion_torch import ActiveInferenceConfig, DiffusionConfig
+
+    return ActiveInferenceConfig(
+        observation_dim=FLAGSHIP_OBS, action_dim=FLAGSHIP_ACT, latent_dim=FLAGSHIP["latent"],
+        hidden_dim=FLAGSHIP["hidden"], score_num_layers=FLAGSHIP["layers"],
+        batch_size=FLAGSHIP["batch"], kl_weight=0.5,
+        diffusion=DiffusionConfig(num_diffusion_steps=FLAGSHIP["schedule"], beta_schedule="cosine"),
+    )
+
+
+def flagship_agent(device, train: bool = False):
+    """The flagship agent on ``device``, 20 collect steps on its 25-step
+    schedule (as the upstream HalfCheetah entry point runs). Acting: every
+    parameter ``randomize``d (seed 100). Training (``train``): the Flax
+    initialisers from seed 300, then the score network ``randomize``d (seed
+    301), so its head is not zero."""
+    from active_inference_diffusion_torch import DiffusionStateAgent, TrainingConfig
+
+    agent = DiffusionStateAgent(FLAGSHIP_OBS, FLAGSHIP_ACT, flagship_config(),
+                                TrainingConfig(collect_diffusion_steps=20), device=device)
+    if train:
+        agent.core.init_params(torch.Generator(device=device).manual_seed(300))
+        randomize(agent.core.score_network, seed=301)
+    else:
+        randomize(agent.core, seed=100)
+    return agent
 
 
 def cuda_ms(fn, calls: int) -> list:
@@ -283,6 +377,96 @@ def parity_rows(kernels=None):
                        err_over_tol=float((err / (atol + rtol * want.abs())).max()))
 
 
+def train_batch(batch: int, seed: int, device) -> dict:
+    """A seeded replay batch at the flagship's shapes on ``device``."""
+    rng = np.random.default_rng(seed)
+    arrays = {
+        "observations": rng.standard_normal((batch, FLAGSHIP_OBS)),
+        "next_observations": rng.standard_normal((batch, FLAGSHIP_OBS)),
+        "actions": np.tanh(rng.standard_normal((batch, FLAGSHIP_ACT))),
+        "rewards": rng.standard_normal(batch),
+        "dones": (rng.random(batch) < 0.05).astype(np.float32),
+    }
+    return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in arrays.items()}
+
+
+def compare_train_steps(state, metrics, twin_state, twin_metrics) -> dict:
+    """One train update on the card against the same update of the CPU
+    twin, both from fresh states (so g = first moment / 0.1): the worst
+    err/tol of the metrics; per partition the relative L2 distance of its
+    first moments, the worst err/tol of its parameters, and the elements
+    under the sign rule with the partition's size, by the rule above."""
+    def ratio(got, want, atol):
+        return float(((got - want).abs() / (atol + TRAIN_RTOL * want.abs())).max())
+
+    out = {"metrics": max(ratio(metrics[k].cpu(), v, TRAIN_ATOL) for k, v in twin_metrics.items())}
+    for part, opt in state.optimizers.items():
+        twin_opt = twin_state.optimizers[part]
+        mus = [opt.adamw.state[p]["exp_avg"].cpu() for p in opt.params]
+        twin_mus = [twin_opt.adamw.state[p]["exp_avg"] for p in twin_opt.params]
+        flat, twin_flat = torch.cat([m.flatten() for m in mus]), torch.cat([m.flatten() for m in twin_mus])
+        row = {"moments_rel_l2": float((flat - twin_flat).norm() / twin_flat.norm()),
+               "params": 0.0, "sign_rule": 0, "elements": flat.numel()}
+        lr = opt.adamw.param_groups[0]["lr"]
+        for p, q, mu, twin_mu in zip(opt.params, twin_opt.params, mus, twin_mus):
+            slack = 2 * lr * (torch.sign(mu) != torch.sign(twin_mu)).float()
+            row["sign_rule"] += int(slack.count_nonzero())
+            bound = TRAIN_ATOL + TRAIN_RTOL * q.detach().abs() + slack
+            row["params"] = max(row["params"], float(((p.detach().cpu() - q.detach()).abs() / bound).max()))
+        out[part] = row
+    return out
+
+
+def train_step_fails(worst: dict) -> list:
+    """The checks of ``compare_train_steps``' result that failed."""
+    bad = ["metrics"] if worst["metrics"] > 1.0 else []
+    for part, row in worst.items():
+        if part == "metrics":
+            continue
+        limit = MINE_REL_L2 if part == "epistemic" else MOMENT_REL_L2
+        bad += [f"{part} moments"] * (row["moments_rel_l2"] > limit)
+        bad += [f"{part} parameters"] * (row["params"] > 1.0)
+        bad += [f"{part} sign rule"] * (row["sign_rule"] * 100 >= row["elements"])
+    return bad
+
+
+def describe_train_comparison(worst: dict) -> str:
+    return f"err/tol metrics {worst['metrics']:.3f}; per partition (first moments' relative " \
+           "L2, parameters err/tol, elements under the sign rule of the partition's): " + \
+        "; ".join(f"{part} {row['moments_rel_l2']:.3e}, {row['params']:.3f}, "
+                  f"{row['sign_rule']} of {row['elements']}"
+                  for part, row in worst.items() if part != "metrics")
+
+
+def profile_ms(fn, calls: int, names: str) -> dict:
+    """``calls`` runs of ``fn`` under torch.profiler: host ms per call, the
+    device ms per call summed over kernels, the share of it spent in
+    kernels whose name holds ``names``, the kernel count, and the host ms
+    per call of each ``train_step/<phase>`` range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / calls
+    # the phases' ranges appear twice: on the host, and as annotations on the device's timeline
+    ranges = [e for e in prof.events() if e.name.startswith("train_step/")]
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("train_step/")]
+    device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
+    named = sum(e.time_range.elapsed_us() for e in kernels if names in e.name) / 1e3 / calls
+    phases: dict = {}
+    for e in ranges:
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            key = e.name.split("/", 1)[1]
+            phases[key] = phases.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    return dict(host_ms=host, device_ms=device, named_ms=named,
+                kernels_per_call=len(kernels) / calls, phases_host_ms=phases)
+
+
 def host_ms(fn, calls: int) -> list:
     times = []
     for _ in range(calls):
@@ -313,7 +497,9 @@ def main() -> int:
     from active_inference_diffusion_torch.ops.denoise import (
         KERNELS,
         LAUNCHES,
+        PLAIN_RUNS,
         denoise_sweep_reference,
+        kernel_name,
         kernel_smem_bytes,
         max_active_clusters,
     )
@@ -337,10 +523,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[2 build] ptxas {name}: {line.strip()}")
     for kernel, (variant, dtype, library, _) in KERNELS.items():
-        for latent, hidden in ((64, 256), (32, 128)):
-            smem = kernel_smem_bytes(latent, hidden, variant, dtype)
-            count = max_active_clusters(_build.load_library(library), variant, dtype, smem)
-            log(f"[2 build] {kernel} D={latent} H={hidden}: {smem} B of shared memory a CTA, "
+        for latent, hidden, streamed in ((64, 256, False), (32, 128, False), (128, 512, True)):
+            smem = kernel_smem_bytes(latent, hidden, variant, dtype, streamed)
+            count = max_active_clusters(_build.load_library(library), variant, dtype, smem,
+                                        streamed)
+            log(f"[2 build] {kernel} D={latent} H={hidden} "
+                f"{'streamed' if streamed else 'resident'}: {smem} B of shared memory a CTA, "
                 f"{count} clusters at once")
 
     # -- 3. kernels vs plain version ----------------------------------------
@@ -432,17 +620,8 @@ def main() -> int:
         return launches[kernel]
 
     launches = {}
-    flagship_cfg = ActiveInferenceConfig(
-        observation_dim=FLAGSHIP_OBS, action_dim=FLAGSHIP_ACT, latent_dim=FLAGSHIP["latent"],
-        hidden_dim=FLAGSHIP["hidden"], score_num_layers=FLAGSHIP["layers"],
-        batch_size=FLAGSHIP["batch"], kl_weight=0.5,
-        diffusion=DiffusionConfig(num_diffusion_steps=FLAGSHIP["schedule"], beta_schedule="cosine"),
-    )
-    flagship_cfg.tpu.use_pallas_denoiser = True
-    # 20 collect steps on a 25-step schedule, as the upstream HalfCheetah entry point runs
-    flagship_training = TrainingConfig(collect_diffusion_steps=20)
-    flagship = DiffusionStateAgent(FLAGSHIP_OBS, FLAGSHIP_ACT, flagship_cfg, flagship_training)
-    randomize(flagship.core, seed=100)
+    flagship = flagship_agent(dev)
+    flagship_cfg = flagship.config
     twin = twin_of(flagship)
     launches["denoise_sweep_v1_f32"] = main_path(
         "flagship v1-f32", flagship, twin, "denoise_sweep_v1_f32", FLAGSHIP["batch"], 20
@@ -469,6 +648,138 @@ def main() -> int:
         )
     humanoid_cfg.tpu.denoiser_kernel = "v1"
 
+    # C1: beyond the kernels' 48 MiB of trunk weights the card runs the plain
+    # sweep; within it, at the widths C1 found refused, the kernel runs.
+    for (latent, hidden, dtype), path in C1_WIDTHS.items():
+        cfg = ActiveInferenceConfig(observation_dim=FLAGSHIP_OBS, action_dim=FLAGSHIP_ACT,
+                                    latent_dim=latent, hidden_dim=hidden,
+                                    diffusion=DiffusionConfig(num_diffusion_steps=C1_STEPS))
+        cfg.tpu.compute_dtype = dtype
+        agent = DiffusionStateAgent(FLAGSHIP_OBS, FLAGSHIP_ACT, cfg, TrainingConfig())
+        label = f"latent {latent} hidden {hidden} {dtype}"
+        if agent.core.sweep_uses_kernel != (path == "kernel"):
+            raise RuntimeError(f"{label}: sweep_uses_kernel is {agent.core.sweep_uses_kernel}, "
+                               f"expected the {path} path")
+        randomize(agent.core, seed=hidden)
+        twin = twin_of(agent)
+        obs = np.random.default_rng(hidden).standard_normal((8, FLAGSHIP_OBS)).astype(np.float32)
+        gen = torch.Generator(device=dev).manual_seed(hidden)
+        state = gen.get_state()
+        for name in KERNELS:
+            LAUNCHES[name] = PLAIN_RUNS[name] = 0
+        actions = agent.act(obs, gen, deterministic=True, collect=False)
+        belief = agent.core.generate_beliefs(gen, torch.from_numpy(obs).to(dev))
+        torch.cuda.synchronize()
+        name = kernel_name("v1", agent.core.sweep_dtype)
+        counts = (dict(LAUNCHES), dict(PLAIN_RUNS))
+        zero = {n: 0 for n in KERNELS}
+        want_counts = (zero, {**zero, name: 2}) if path == "plain" else ({**zero, name: 2}, zero)
+        if counts != want_counts:
+            raise RuntimeError(f"{label}: expected 2 {path} runs of {name} and no other, got "
+                               f"launches {counts[0]}, plain runs {counts[1]}")
+        if path == "kernel":
+            launches[name] += 2
+        check_actions(actions, 8, FLAGSHIP_ACT)
+        gen.set_state(state)
+        start = agent.core.draw_start(8, gen)
+        plain, _ = twin.act_from_start(torch.from_numpy(obs), start.to("cpu"), None,
+                                       deterministic=True)
+        start = agent.core.draw_start(8, gen)
+        want = twin.core.beliefs_from_start(torch.from_numpy(obs), start.noise.cpu(),
+                                            start.seed.cpu())
+        atol = ACT_ATOL[agent.core.sweep_dtype]
+        rtol_b, atol_b = SWEEP_TOL[agent.core.sweep_dtype]
+        act_err = float(np.abs(plain.numpy() - actions).max())
+        lat_ratio = float(((belief.latent.cpu() - want.latent)
+                           .abs() / (atol_b + rtol_b * want.latent.abs())).max())
+        rec = (float(belief.reconstruction_error), float(want.reconstruction_error))
+        log(f"[4 c1] {label} B=8 K={C1_STEPS}: {path}, launches {counts[0][name]}, plain runs "
+            f"{counts[1][name]}; eval actions vs CPU max|err| {act_err:.3e} (tol {atol:g}); "
+            f"belief latents err/tol {lat_ratio:.3f}; reconstruction error {rec[0]:.6g} vs "
+            f"{rec[1]:.6g}")
+        if act_err > atol or lat_ratio > 1.0 or abs(rec[0] - rec[1]) > atol_b + rtol_b * abs(rec[1]):
+            raise RuntimeError(f"{label}: the card's {path} path disagrees with the CPU")
+
+    # 4e. The flagship train update: one belief sweep of 2 x 256 rows a step.
+    trainer = flagship_agent(dev, train=True)
+    train_cfg = trainer.config
+    train_state = trainer.new_train_state(302)
+    train_twin = twin_of(trainer)
+    train_batches = [train_batch(FLAGSHIP["batch"], 310 + i, dev) for i in range(2)]
+    train_launches = {}
+    for variant in ("v1", "v2"):
+        train_cfg.tpu.denoiser_kernel = variant
+        kernel = kernel_name(variant, torch.float32)
+        steps = TRAIN_STEPS[variant]
+        before = [p.detach().clone() for p in trainer.core.parameters()]
+        first_step = train_state.step
+        for name in KERNELS:
+            LAUNCHES[name] = PLAIN_RUNS[name] = 0
+        for i in range(steps):
+            mine = train_state.step % train_cfg.epistemic_update_every == 0
+            train_state, metrics = trainer.train_step(train_state, train_batches[i % 2])
+            bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+            if bad or (float(metrics["epistemic_mi"]) != 0.0) != mine:
+                raise RuntimeError(f"train {variant} step {train_state.step - 1}: non-finite {bad} "
+                                   f"or the MINE update ran where it should not (mine={mine})")
+        torch.cuda.synchronize()
+        counts = (dict(LAUNCHES), dict(PLAIN_RUNS))
+        log(f"[4 train] flagship {variant}-f32 B={FLAGSHIP['batch']}: {steps} train_step calls "
+            f"from step {first_step}, launches {counts[0]}, plain runs {sum(counts[1].values())}")
+        if counts != ({**{n: 0 for n in KERNELS}, kernel: steps}, {n: 0 for n in KERNELS}):
+            raise RuntimeError(f"train {variant}: expected {steps} launches of {kernel} and no other")
+        params = list(trainer.core.parameters())
+        for part, opt in train_state.optimizers.items():
+            ids = {id(p) for p in opt.params}
+            if all(torch.equal(p, b) for p, b in zip(params, before) if id(p) in ids):
+                raise RuntimeError(f"train {variant}: the {part} partition did not move")
+        log(f"[4 train] flagship {variant}: losses finite at every step, MINE at steps "
+            f"{[s for s in range(first_step, first_step + steps) if s % 5 == 0]}, every partition "
+            f"moved; last metrics " + json.dumps({k: round(float(v), 6) for k, v in metrics.items()}))
+        train_launches[kernel] = steps
+
+        # one deterministic update from fresh states, the draws shared with the CPU twin
+        train_cfg.deterministic_beliefs = True
+        train_twin.core.load_state_dict(trainer.core.state_dict())
+        card_state, twin_state = trainer.new_train_state(303), train_twin.new_train_state(303)
+        draws = trainer.draw_train(card_state, FLAGSHIP["batch"])
+        for name in KERNELS:
+            LAUNCHES[name] = 0
+        card_state, card_metrics = trainer.train_step_from_draws(card_state, train_batches[0],
+                                                                  draws)
+        torch.cuda.synchronize()
+        if LAUNCHES[kernel] != 1 or sum(LAUNCHES.values()) != 1:
+            raise RuntimeError(f"train {variant}: the deterministic step launched {LAUNCHES}")
+        train_launches[kernel] += 1
+        twin_state, twin_metrics = train_twin.train_step_from_draws(
+            twin_state, {k: v.cpu() for k, v in train_batches[0].items()}, draws.to("cpu")
+        )
+        worst = compare_train_steps(card_state, card_metrics, twin_state, twin_metrics)
+        log(f"[4 train] flagship {variant} deterministic step vs CPU twin: "
+            + describe_train_comparison(worst))
+        failed = train_step_fails(worst)
+        if failed:
+            raise RuntimeError(f"train {variant}: the card's update disagrees with the CPU twin: "
+                               f"{failed}")
+        if variant == "v1":
+            # control: the same step with TF32 products on the card must fail the gradients' limits
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                control_state, control_metrics = trainer.train_step_from_draws(
+                    trainer.new_train_state(303), train_batches[0], draws)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            control = compare_train_steps(control_state, control_metrics, twin_state, twin_metrics)
+            log("[4 train] control, the same step with TF32 products on the card, vs CPU twin: "
+                + describe_train_comparison(control))
+            if "epistemic moments" not in train_step_fails(control):
+                raise RuntimeError("the MINE gradient's limit passes a step with TF32 products")
+            train_launches[kernel] += 1
+        train_cfg.deterministic_beliefs = False
+    train_cfg.tpu.denoiser_kernel = "v1"
+    for kernel, count in train_launches.items():
+        launches[kernel] += count
+
     # -- 5. times -----------------------------------------------------------
     hum = dict(batch=256, latent=64, hidden=256, layers=6, schedule_len=50, steps=50)
     flag = dict(batch=256, latent=32, hidden=128, layers=6, schedule_len=25, steps=25)
@@ -483,6 +794,12 @@ def main() -> int:
         ("denoise_sweep_v1_f32", "flagship_b1", dict(flag, batch=1)),
         ("denoise_sweep_v2_f32", "flagship", flag),
         ("denoise_sweep_v2_f32", "humanoid_state_b8", dict(hum, batch=8)),
+        ("denoise_sweep_v1_f32", "flagship_b512", dict(flag, batch=512)),
+        # the C1 widths the kernels take: the default in bfloat16 (streamed), hidden 96
+        ("denoise_sweep_v1_bf16", "default", dict(batch=8, latent=128, hidden=512, layers=6,
+                                                   schedule_len=100, steps=100)),
+        ("denoise_sweep_v1_f32", "h96", dict(batch=8, latent=128, hidden=96, layers=6,
+                                              schedule_len=100, steps=100)),
     ]
     summary = {}
     for kernel, label, shape in timed:
@@ -552,6 +869,32 @@ def main() -> int:
                 act_ms = statistics.median(host_ms(call, TIMED_CALLS))
                 log(f"[5 times] act latency {label} b={batch} {mode}: median {act_ms:.4f} ms "
                     f"over {TIMED_CALLS} calls | {card}")
+
+    # The flagship train update, per variant: host clock, and the sweep's share
+    # from the profiler.
+    for variant in ("v1", "v2"):
+        train_cfg.tpu.denoiser_kernel = variant
+        timed_state = trainer.new_train_state(304)
+
+        def train_call():
+            nonlocal timed_state
+            timed_state, _ = trainer.train_step(timed_state, train_batches[0])
+
+        for _ in range(TRAIN_WARMUP):
+            train_call()
+        step_ms = host_ms(train_call, TRAIN_TIMED)
+        prof = profile_ms(train_call, 5, "denoise_sweep")
+        log(f"[5 times] train_step flagship {variant}-f32 B={FLAGSHIP['batch']}: median "
+            f"{statistics.median(step_ms):.4f} ms over {TRAIN_TIMED} steps (min "
+            f"{min(step_ms):.4f}, max {max(step_ms):.4f}; MINE every 5th); profiled over 5 "
+            f"steps: host {prof['host_ms']:.4f} ms, device {prof['device_ms']:.4f} ms a step in "
+            f"{prof['kernels_per_call']:.0f} kernels, sweep kernel {prof['named_ms']:.4f} ms "
+            f"({prof['named_ms'] / prof['host_ms']:.3%} of the step, "
+            f"{prof['named_ms'] / prof['device_ms']:.3%} of device time), device busy "
+            f"{prof['device_ms'] / prof['host_ms']:.3%}; host ms a step by phase (profiled) "
+            + json.dumps({k: round(v, 3) for k, v in prof["phases_host_ms"].items()})
+            + f" | {card}")
+    train_cfg.tpu.denoiser_kernel = "v1"
 
     # -- 6. summary ---------------------------------------------------------
     print(json.dumps({"kernels": [{

@@ -35,6 +35,7 @@ import torch
 
 from active_inference_diffusion_tpu.configs.config import (
     BeliefDynamicsConfig,
+    SemanticsConfig,
     TrainingConfig,
 )
 from active_inference_diffusion_tpu.ops import denoise as jax_denoise
@@ -244,7 +245,7 @@ def test_agent_act_on_cpu():
     [
         (dict(posterior_beliefs=True, act_from_posterior=True), "act"),
         (dict(plan_candidates=4), "act"),
-        ({}, "compute_efe_info"),
+        (dict(semantics=SemanticsConfig(mode="faithful")), "compute_efe_info"),
         ({}, "return_trajectory"),
         (dict(pixel_observation=True), "construct"),
     ],
@@ -285,7 +286,8 @@ def test_default_device_is_cuda():
 
 def test_port_imports_no_jax():
     """Building the humanoid_state.yaml agent on the CPU and calling ``act``
-    and ``act_warm`` loads no module of jax, flax or the JAX package."""
+    and ``act_warm``, then one ``train_step`` of the same config cut to a
+    tiny width, loads no module of jax, flax or the JAX package."""
     code = (
         "import sys\n"
         "import numpy as np, torch\n"
@@ -301,6 +303,17 @@ def test_port_imports_no_jax():
         "w, z = agent.act_warm(obs, g, torch.zeros(2, cfg.latent_dim), np.array([True, False]))\n"
         "assert a.shape == w.shape == (2, HUMANOID_ACT_DIM) and np.isfinite(a).all()\n"
         "assert np.isfinite(w).all() and z.shape == (2, cfg.latent_dim)\n"
+        "cfg.latent_dim, cfg.hidden_dim, cfg.score_num_layers = 8, 64, 1\n"
+        "cfg.diffusion.num_diffusion_steps = 5\n"
+        "agent = DiffusionStateAgent(HUMANOID_OBS_DIM, HUMANOID_ACT_DIM, cfg, training,\n"
+        "                            device='cpu')\n"
+        "state = agent.new_train_state(0)\n"
+        "rng = np.random.default_rng(0)\n"
+        "batch = {k: torch.tensor(rng.standard_normal(s), dtype=torch.float32) for k, s in (\n"
+        "    ('observations', (2, HUMANOID_OBS_DIM)), ('next_observations', (2, HUMANOID_OBS_DIM)),\n"
+        "    ('actions', (2, HUMANOID_ACT_DIM)), ('rewards', (2,)), ('dones', (2,)))}\n"
+        "state, metrics = agent.train_step(state, batch)\n"
+        "assert state.step == 1 and all(bool(torch.isfinite(v)) for v in metrics.values())\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "                ('jax', 'flax', 'active_inference_diffusion_tpu'))\n"
         "assert not loaded, loaded\n"

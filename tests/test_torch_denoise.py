@@ -47,12 +47,15 @@ from active_inference_diffusion_torch.ops.denoise import (
     extract_trunk_weights,
     fused_denoise_sweep,
     fused_denoise_sweep_v2,
+    kernel_plan,
     kernel_products,
+    kernel_shapes,
     kernel_smem_bytes,
     packed_trunk_weights,
     philox4x32,
     philox_normal,
     rank_columns,
+    kernel_takes,
     sweep_smem_bytes,
 )
 from torch_parity import (
@@ -346,8 +349,9 @@ def test_shared_memory_plan():
 # ---------------------------------------------------------------------------
 
 # (latent, hidden, layers): a small width the kernels take (latent padded from
-# 50 to 64) and the humanoid_state.yaml width.
-LAYOUT_WIDTHS = {"small": (50, 64, 2), "humanoid": (64, 256, 6)}
+# 50 to 64), the humanoid_state.yaml width, and a hidden width the kernels pad
+# (96 to 128; out_fc1's 48 to 64).
+LAYOUT_WIDTHS = {"small": (50, 64, 2), "humanoid": (64, 256, 6), "padded": (32, 96, 2)}
 # Integer words of each weight type, for comparing bit patterns.
 WORDS = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
 
@@ -385,12 +389,11 @@ def unpack_kernel_layout(packed):
     per_lane = k_of.shape[1]
     n_of = g[:, None].expand(32, per_lane)
     mats, biases, index = [], [], 0
-    for w, _, modulation in kernel_products(packed):
-        kp = -(-w.shape[0] // 64) * 64
-        out = torch.zeros(kp, max(w.shape[1], -(-w.shape[1] // 64) * 64), dtype=word)
+    for (w, _, modulation), (kp, np_) in zip(kernel_products(packed), kernel_shapes(packed)):
+        out = torch.zeros(kp, np_, dtype=word)
         rank_biases = []
         for r in range(KERNEL_CLUSTER):
-            cols = rank_columns(w.shape[1], modulation, r)
+            cols = rank_columns(np_, modulation, r)
             k_steps, n_tiles, piece = kp // k_step, len(cols) // 8, index
             bias = []
             for n0 in range(0, n_tiles, CHUNK_TILES):
@@ -423,8 +426,9 @@ def unpack_kernel_layout(packed):
 @pytest.mark.parametrize("width", sorted(LAYOUT_WIDTHS))
 def test_kernel_layout_unpacks_to_the_views(variant, width, dtype):
     """The kernels' weight buffer holds exactly the (in, out) views, bit for
-    bit, and zeros where the kernels pad; each rank's bias heads hold the
-    bias views of its columns, zeros where padded."""
+    bit, and zeros where the kernels pad (a modulation's scale and shift
+    halves each padded at its end); each rank's bias heads hold the bias
+    views of its columns, zeros where padded."""
     packed = seeded_pack(variant, *LAYOUT_WIDTHS[width], dtype)
     layout = packed.kernel
     assert layout.weights.dtype == dtype
@@ -435,15 +439,24 @@ def test_kernel_layout_unpacks_to_the_views(variant, width, dtype):
     mats, biases = unpack_kernel_layout(packed)
     for (w, b, modulation), got, rank_biases in zip(kernel_products(packed), mats, biases):
         k, n = w.shape
+        np_ = got.shape[1]
         word = WORDS[dtype]
-        assert torch.equal(got[:k, :n].view(word), w.contiguous().view(word))
-        assert not got[k:].float().any() and not got[:, n:].float().any()
+        # padded column j of the kernels' matrix -> the view's column (-1: a zero column)
+        source = torch.full((np_,), -1)
+        if modulation:
+            half = torch.arange(n // 2)
+            source[half], source[np_ // 2 + half] = half, n // 2 + half
+        else:
+            source[:n] = torch.arange(n)
+        real = source >= 0
+        assert torch.equal(got[:k, real].view(word), w[:, source[real]].contiguous().view(word))
+        assert not got[k:].float().any() and not got[:, ~real].float().any()
         for r in range(KERNEL_CLUSTER):
-            cols = rank_columns(n, modulation, r)
+            cols = rank_columns(np_, modulation, r)
             want = torch.zeros(len(cols))
-            real = cols < n
+            src = source[cols]
             if b is not None:
-                want[real] = b[cols[real]]
+                want[src >= 0] = b[src[src >= 0]]
             assert torch.equal(rank_biases[r], want)
 
 
@@ -460,11 +473,12 @@ def test_every_output_column_has_one_rank(width, dtype):
     sizes = packed.kernel.pieces[..., 1].long().sum(dim=1)
     for r in range(KERNEL_CLUSTER):
         want = 0
-        for w, _, modulation in kernel_products(packed):
-            n_tiles = len(rank_columns(w.shape[1], modulation, r)) // 8
-            k_steps = -(-w.shape[0] // 64) * 64 // K_STEP[dtype]
+        for (_, _, modulation), (kp, np_) in zip(kernel_products(packed), kernel_shapes(packed)):
+            n_tiles = len(rank_columns(np_, modulation, r)) // 8
+            k_steps = kp // K_STEP[dtype]
             want += 32 * n_tiles + n_tiles * k_steps * 32 * 8
         assert int(sizes[r]) == want
+    hidden = -(-hidden // 64) * 64  # the kernels' hidden width
     for out, modulation in ((latent, False), (hidden, False), (4 * hidden, False),
                             (hidden // 2, False), (2 * hidden, True)):
         owners = torch.cat([rank_columns(out, modulation, r) for r in range(KERNEL_CLUSTER)])
@@ -476,6 +490,37 @@ def test_every_output_column_has_one_rank(width, dtype):
             if modulation:
                 half = len(cols) // 2
                 assert torch.equal(cols[half:], cols[:half] + hidden)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_every_width_within_the_gate_has_a_plan(dtype):
+    """The kernels take every width within the JAX package's 48 MiB of trunk
+    weights (``kernel_takes``). The streamed plan's shared memory grows with
+    the hidden width alone, and at the widest hidden width the gate takes at
+    each depth from 0 to 12 DiT blocks it fits a CTA; ``kernel_plan`` keeps
+    the resident plan where it fits (shared memory and piece table) and
+    streams elsewhere."""
+    for layers in range(13):
+        hidden = 8
+        while kernel_takes(8, hidden + 1, layers, dtype):
+            hidden += 1
+        padded = -(-hidden // 64) * 64
+        smem = kernel_smem_bytes(8, padded, "v1", dtype, streamed=True)
+        assert smem == sweep_smem_bytes(4096, padded, dtype, streamed=True) <= MAX_SMEM_BYTES
+    # (latent, hidden, layers) -> (the kernel's hidden width, streamed)
+    cases = {(32, 128, 6): (128, False), (32, 96, 2): (128, False),
+             (32, 64, 44): (64, True)}  # 44 blocks: over MAX_PIECES pieces a step
+    if dtype == torch.float32:
+        cases[(64, 256, 6)] = (256, False)  # 230,464 B, the resident plan's widest
+        cases[(64, 320, 1)] = (320, True)
+    else:
+        cases[(128, 512, 1)] = (512, True)  # the config's default width
+    for (latent, hidden, layers), (kernel_hidden, streamed) in cases.items():
+        packed = seeded_pack("v1", latent, hidden, layers, dtype)
+        plan = kernel_plan(packed)
+        assert (plan.hidden, plan.streamed) == (kernel_hidden, streamed)
+        assert plan.smem == sweep_smem_bytes(latent, kernel_hidden, dtype, streamed)
+        assert (packed.kernel.pieces.shape[1] > MAX_PIECES) == (layers == 44)
 
 
 def test_bf16_shared_memory_plan():
@@ -505,7 +550,8 @@ def test_bf16_shared_memory_plan():
             kernel_smem_bytes(8, 36, variant, torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
         kernel_smem_bytes(128, 512, "v1", torch.float32)
-    # a pack at a width the kernels do not take carries no kernel layout
-    net = LatentScoreNetwork(8, OBS_DIM, hidden_dim=32, num_layers=1)
-    for dtype in (torch.bfloat16, torch.float32):
-        assert packed_trunk_weights(net, "v1", dtype).kernel is None
+    # a pack beyond the kernels' 48 MiB of trunk weights (float32, hidden 384, 6
+    # blocks: 51.1 MB) carries no kernel layout; in bfloat16 the same width has one
+    net = LatentScoreNetwork(8, OBS_DIM, hidden_dim=384, num_layers=6)
+    assert packed_trunk_weights(net, "v1", torch.float32).kernel is None
+    assert packed_trunk_weights(net, "v1", torch.bfloat16).kernel is not None

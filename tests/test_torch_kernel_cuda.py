@@ -12,8 +12,9 @@ atol 1e-5 at every width, which the kernels built with one TF32 product
 (hi x hi) fail in every float32 case (PERF.md). With bfloat16 weights a
 one-ulp float32 difference (the tensor cores sum in another order) can flip
 a bfloat16 rounding of an activation, and the flip carries through the
-later steps: rtol 1e-2 / atol 5e-3. The kernels take hidden widths that are
-a multiple of 64, so the small shapes use hidden 64.
+later steps: rtol 1e-2 / atol 5e-3. The kernels pad a hidden width to a
+multiple of 64; most small shapes use hidden 64, and the padded and the
+streamed plans have tests of their own.
 """
 
 import numpy as np
@@ -30,12 +31,13 @@ from active_inference_diffusion_torch.configs.config import BeliefDynamicsConfig
 from active_inference_diffusion_torch.core.schedules import make_schedule
 from active_inference_diffusion_torch.models.score_network import LatentScoreNetwork
 from active_inference_diffusion_torch.ops.denoise import (
-    KERNEL_CLUSTER,
     LAUNCHES,
+    PLAIN_RUNS,
     denoise_sweep_reference,
     fused_denoise_sweep,
     fused_denoise_sweep_v2,
     kernel_name,
+    kernel_plan,
     packed_trunk_weights,
 )
 
@@ -59,7 +61,7 @@ def randomize(module, seed):
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for p in module.parameters():
-            fan_in = p.shape[-1] if p.dim() == 2 else p.shape[0]
+            fan_in = p.shape[-1] if p.dim() >= 2 else p.numel()
             p.copy_(torch.randn(p.shape, generator=gen) / fan_in**0.5)
 
 
@@ -148,10 +150,15 @@ def test_agent_act_launches_the_kernel_once_per_call(cuda, kernel):
 
 
 def test_kernel_raises_beyond_its_shared_memory_plan(cuda):
+    """Beyond the 48 MiB of trunk weights the kernels take (float32, latent
+    128, hidden 384, 6 blocks: 51.1 MB) the pack has no kernel layout and the
+    wrappers raise; they never run the plain sweep in its place."""
     for variant in ("v1", "v2"):
-        args = list(sweep_args(cuda, 4, 128, 512, 1, steps=2, variant=variant))
-        with pytest.raises(ValueError, match="shared memory"):
+        args = list(sweep_args(cuda, 4, 128, 384, 6, steps=2, variant=variant))
+        before = dict(LAUNCHES)
+        with pytest.raises(ValueError, match="no kernel layout"):
             WRAPPERS[variant](*args, deterministic=True)
+        assert LAUNCHES == before
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -226,9 +233,11 @@ def test_bf16_pack_rebuilt_after_an_in_place_update(cuda, variant):
 
 
 def test_bf16_kernels_raise_on_an_unsupported_width(cuda):
+    """bfloat16 beyond the 48 MiB of trunk weights (hidden 512, 8 blocks:
+    60 MB) raises."""
     for variant in ("v1", "v2"):
-        args = sweep_args(cuda, 8, 8, 32, 2, steps=5, variant=variant, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match=f"multiple of {8 * KERNEL_CLUSTER}"):
+        args = sweep_args(cuda, 8, 8, 512, 8, steps=2, variant=variant, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="no kernel layout"):
             WRAPPERS[variant](*args, deterministic=True)
 
 
@@ -258,17 +267,170 @@ def test_f32_kernels_at_the_humanoid_width(cuda, variant, batch, deterministic):
 
 
 # The flagship width (latent 32, hidden 128), the full 25-step sweep, at the
-# serving batch and the batched one.
+# serving batch, the batched one and the train step's belief sweep (2 x 256
+# rows: 32 tiles, three waves of the 15 clusters the card holds).
 @pytest.mark.parametrize("variant", ["v1", "v2"])
-@pytest.mark.parametrize("batch", [1, 256])
+@pytest.mark.parametrize("batch", [1, 256, 512])
 @pytest.mark.parametrize("deterministic", [True, False], ids=["det", "sto"])
 def test_f32_kernels_at_the_flagship_width(cuda, variant, batch, deterministic):
     _wide_sweep(cuda, variant, batch, 32, 128, 25, 25, deterministic)
 
 
 def test_f32_kernels_raise_on_an_unsupported_width(cuda):
+    """float32 beyond the 48 MiB of trunk weights (hidden 384, 6 blocks)
+    raises, whatever the batch."""
     for variant in ("v1", "v2"):
-        for hidden in (32, 96):
-            args = sweep_args(cuda, 8, 8, hidden, 2, steps=5, variant=variant)
-            with pytest.raises(ValueError, match=f"multiple of {8 * KERNEL_CLUSTER}"):
+        for batch in (1, 37):
+            args = sweep_args(cuda, batch, 8, 384, 6, steps=2, variant=variant)
+            with pytest.raises(ValueError, match="no kernel layout"):
                 WRAPPERS[variant](*args, deterministic=True)
+
+
+# Hidden widths the kernels pad to a multiple of 64 (32 to 64, 96 to 128): zero
+# weights on the padded columns, adaLN statistics over the real ones.
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(8, 8, 32, 2), (37, 50, 96, 2)], ids=["h32", "h96"])
+@pytest.mark.parametrize("deterministic", [True, False], ids=["det", "sto"])
+def test_kernels_at_a_padded_hidden_width(cuda, variant, dtype, shape, deterministic):
+    args = sweep_args(cuda, *shape, steps=5, variant=variant, dtype=dtype)
+    assert not kernel_plan(args[1]).streamed
+    name = kernel_name(variant, dtype)
+    before = dict(LAUNCHES)
+    got = WRAPPERS[variant](*args, deterministic=deterministic)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**before, name: before[name] + 1}
+    want = denoise_sweep_reference(*args, deterministic=deterministic)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL[dtype])
+
+
+# Widths whose operand copies do not fit a CTA's shared memory, streamed from
+# global memory: the config's default (latent 128, hidden 512) in bfloat16 at 6
+# blocks and in float32 at 2, and float32 at hidden 320 (padded from 300).
+STREAMED = {"default-bf16": (128, 512, 6, torch.bfloat16),
+            "default-f32-l2": (128, 512, 2, torch.float32),
+            "h300-f32": (32, 300, 6, torch.float32)}
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+@pytest.mark.parametrize("width", sorted(STREAMED))
+@pytest.mark.parametrize("batch", [8, 37])
+@pytest.mark.parametrize("deterministic", [True, False], ids=["det", "sto"])
+def test_kernels_in_the_streamed_plan(cuda, variant, width, batch, deterministic):
+    latent, hidden, layers, dtype = STREAMED[width]
+    args = list(sweep_args(cuda, batch, latent, hidden, layers, steps=5, seed=batch,
+                           variant=variant, dtype=dtype))
+    args[0] = make_schedule(100, "cosine", device=cuda)
+    args[1] = args[1]._replace(output_multiplier=1.0)
+    assert kernel_plan(args[1]).streamed
+    name = kernel_name(variant, dtype)
+    before = dict(LAUNCHES)
+    got = WRAPPERS[variant](*args, deterministic=deterministic)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {**before, name: before[name] + 1}
+    want = denoise_sweep_reference(*args, deterministic=deterministic)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **PLAIN_TOL[dtype])
+
+
+def _c1_agent(cuda, hidden, dtype, layers):
+    cfg = ActiveInferenceConfig(
+        observation_dim=OBS_DIM, action_dim=2, latent_dim=128, hidden_dim=hidden,
+        score_num_layers=layers, diffusion=DiffusionConfig(num_diffusion_steps=5),
+        deterministic_beliefs=True,
+    )
+    cfg.tpu.compute_dtype = dtype
+    agent = DiffusionStateAgent(OBS_DIM, 2, cfg, TrainingConfig())
+    randomize(agent.core, 2)
+    twin = DiffusionStateAgent(OBS_DIM, 2, cfg, TrainingConfig(), device="cpu")
+    twin.core.load_state_dict(agent.core.state_dict())
+    return agent, twin
+
+
+def _c1_act_and_beliefs(cuda, agent, twin, counts):
+    """``act`` and ``generate_beliefs`` on the card, with the counters'
+    increments (``counts``: LAUNCHES, PLAIN_RUNS) checked, held against the
+    CPU twin from the same start draws."""
+    obs = np.random.default_rng(1).standard_normal((8, OBS_DIM)).astype(np.float32)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    launches, plain = dict(LAUNCHES), dict(PLAIN_RUNS)
+    state = gen.get_state()
+    actions = agent.act(obs, gen, deterministic=True, collect=False)
+    belief = agent.core.generate_beliefs(gen, torch.from_numpy(obs).to(cuda), deterministic=True)
+    torch.cuda.synchronize()
+    assert ({k: LAUNCHES[k] - launches[k] for k in LAUNCHES},
+            {k: PLAIN_RUNS[k] - plain[k] for k in PLAIN_RUNS}) == counts
+    gen.set_state(state)
+    start = agent.core.draw_start(8, gen)
+    want, _ = twin.act_from_start(torch.from_numpy(obs), start.to("cpu"), None, deterministic=True)
+    tol = PLAIN_TOL[agent.core.sweep_dtype]
+    np.testing.assert_allclose(actions, want.numpy(), **tol)
+    start = agent.core.draw_start(8, gen)
+    want = twin.core.beliefs_from_start(torch.from_numpy(obs), start.noise.cpu(),
+                                        start.seed.cpu(), deterministic=True)
+    np.testing.assert_allclose(belief.latent.cpu().numpy(), want.latent.numpy(), **tol)
+    np.testing.assert_allclose(float(belief.reconstruction_error),
+                               float(want.reconstruction_error), **tol)
+
+
+# Widths beyond the kernels' 48 MiB of trunk weights at 6 blocks (C1): the
+# config's default (latent 128, hidden 512) and hidden 384, in float32. The card
+# runs the plain sweep: no kernel launch, one plain run per sweep, the CPU
+# twin's result. float32 at ``TOL``; bfloat16 (the kernel rows below) at
+# chip_smoke's sweep tolerance, rtol 3e-2 / atol 3e-2: at hidden 512 each step
+# has 4x the products of hidden 128, so more activations land on the other side
+# of a bfloat16 rounding boundary between two orders of summation.
+PLAIN_TOL = {torch.float32: TOL[torch.float32], torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+@pytest.mark.parametrize("hidden,dtype", [(512, "float32"), (384, "float32")],
+                         ids=["default-f32", "h384-f32"])
+def test_plain_path_on_the_card_where_no_kernel_takes_the_width(cuda, hidden, dtype):
+    agent, twin = _c1_agent(cuda, hidden, dtype, 6)
+    assert agent.core.sweep_uses_kernel is False
+    name = kernel_name("v1", agent.core.sweep_dtype)
+    zero = {k: 0 for k in LAUNCHES}
+    _c1_act_and_beliefs(cuda, agent, twin, (zero, {**zero, name: 2}))
+
+
+# The widths C1 found refused that the JAX core's fused sweep takes, at 6
+# blocks: the config's default in bfloat16 (streamed) and hidden 96 in float32
+# (padded to 128): one launch per sweep, no plain run.
+@pytest.mark.parametrize("hidden,dtype", [(512, "bfloat16"), (96, "float32")],
+                         ids=["default-bf16", "h96-f32"])
+def test_kernel_path_at_the_c1_widths_the_gate_takes(cuda, hidden, dtype):
+    agent, twin = _c1_agent(cuda, hidden, dtype, 6)
+    assert agent.core.sweep_uses_kernel is True
+    name = kernel_name("v1", agent.core.sweep_dtype)
+    zero = {k: 0 for k in LAUNCHES}
+    _c1_act_and_beliefs(cuda, agent, twin, ({**zero, name: 2}, zero))
+
+
+@pytest.mark.parametrize("kernel", ["v1", "v2"])
+def test_train_step_launches_the_sweep_once(cuda, kernel):
+    """One belief sweep of 2B rows per train update, on the kernel of the
+    config's variant; the update's losses are finite and every partition
+    moves."""
+    cfg = ActiveInferenceConfig(
+        observation_dim=OBS_DIM, action_dim=2, latent_dim=8, hidden_dim=64,
+        score_num_layers=2, diffusion=DiffusionConfig(num_diffusion_steps=5),
+    )
+    cfg.tpu.denoiser_kernel = kernel
+    agent = DiffusionStateAgent(OBS_DIM, 2, cfg, TrainingConfig())
+    state = agent.init_train_state(0)
+    rng = np.random.default_rng(2)
+    batch = {
+        "observations": rng.standard_normal((16, OBS_DIM)),
+        "next_observations": rng.standard_normal((16, OBS_DIM)),
+        "actions": np.tanh(rng.standard_normal((16, 2))),
+        "rewards": rng.standard_normal(16),
+        "dones": (rng.random(16) < 0.2).astype(np.float32),
+    }
+    batch = {k: torch.tensor(v, dtype=torch.float32, device=cuda) for k, v in batch.items()}
+    before = [p.detach().clone() for p in agent.core.parameters()]
+    name = kernel_name(kernel, torch.float32)
+    launches = dict(LAUNCHES)
+    for step in range(2):
+        state, metrics = agent.train_step(state, batch)
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+        assert (float(metrics["epistemic_mi"]) != 0.0) == (step == 0)
+    assert LAUNCHES == {**launches, name: launches[name] + 2}
+    for part, opt in state.optimizers.items():
+        moved = [not torch.equal(p, b) for p, b in zip(agent.core.parameters(), before)
+                 if any(p is q for q in opt.params)]
+        assert any(moved), part

@@ -163,8 +163,8 @@ def test_bridge_consumes_every_leaf(cores):
     assert _leaves(params["policy"]) == len(list(tcore.policy_network.parameters()))
     assert _leaves(params["decoder"]) == len(list(tcore.observation_decoder.parameters()))
     # the groups of the JAX agent's tree that later ports load are left
-    later = {g: {"w": np.zeros(1, np.float32)} for g in ("value", "epistemic")}
-    assert load_jax_params(tcore, {**params, **later}) == ("value", "epistemic")
+    later = {g: {"w": np.zeros(1, np.float32)} for g in ("posterior", "feature_decoder")}
+    assert load_jax_params(tcore, {**params, **later}) == ("posterior", "feature_decoder")
     assert set(later) <= set(UNPORTED_GROUPS)
 
 

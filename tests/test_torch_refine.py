@@ -70,7 +70,7 @@ def test_state_decoder_matches_flax(cores):
         ln = getattr(decoder, f"b{i}_ln")
         x = 1e-3 * normal(31 + i, B, ln.normalized_shape[0])
         close(ln(t(x)), fnn.LayerNorm().apply({"params": params["decoder"][f"b{i}_ln"]}, x))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout masks"):
         decoder(t(z), train=True)
 
 
