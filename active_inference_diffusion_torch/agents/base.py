@@ -4,9 +4,17 @@ train state.
 Counterpart of ``active_inference_diffusion_tpu/agents/base.py``:
 ``RewardNormState`` (:26-57), ``AgentTrainState`` (:60-88),
 ``make_optimizers`` (:90-132), ``subset`` (:135) and ``BaseAgent``
-(:145-276). The parameters live in the core's modules, which the train
-step updates in place; the train state holds everything else.
-``train_epoch`` and the device replay ring come with the next slice.
+(:145-276), with ``train_epoch`` (:180-237). The parameters live in the
+core's modules, which the train step updates in place; the train state
+holds everything else.
+
+``train_epoch`` runs ``num_updates`` updates over a device replay ring
+(``data/replay.py``) in near-equal chunks of at most
+``TrainingConfig.epoch_chunk_updates`` (``epoch_chunks``, JAX's rule), each
+update as JAX's scan body: a batch drawn from the ring, then the train
+update. On a CUDA device each update is a replay of a captured CUDA graph
+(``agents/graphs.py``), the counterpart of JAX's ``lax.scan`` over donated
+state; on the CPU the same loop runs eagerly.
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ from ..bridge import load_jax_params
 from ..configs.config import ActiveInferenceConfig, TrainingConfig
 from ..core.active_inference import GROUP_MODULES, DiffusionActiveInference
 from ..core.time_sampler import init_time_importance
+from ..data.replay import ReplayState, draw_indices, replay_sample
 from ..models.ema import init_ema
+from ..ops.denoise import forget_packed_trunks
 
 
 @dataclass
@@ -71,7 +81,10 @@ class PartitionOptimizer:
     over one partition's parameters. AdamW is ``torch.optim.AdamW``, which
     takes optax's rule: eps outside the square root, no eps_root, the
     decoupled decay lr * wd * p taken with the update. ``schedule`` (update
-    count -> learning rate) replaces the constant rate."""
+    count -> learning rate) replaces the constant rate. On a CUDA device
+    AdamW is ``capturable`` (its step counts on the device), so an update
+    can be captured in a CUDA graph; its moments and counts are made here,
+    before any capture, so they never live in a graph's memory pool."""
 
     def __init__(self, params: Sequence[nn.Parameter], lr: float, weight_decay: float,
                  clip: float, schedule: Optional[Callable[[int], float]] = None):
@@ -79,9 +92,17 @@ class PartitionOptimizer:
         self.clip = clip
         self.schedule = schedule
         self.count = 0
+        capturable = bool(self.params) and self.params[0].is_cuda
         self.adamw = torch.optim.AdamW(
-            self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
+            self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+            capturable=capturable,
         )
+        for p in self.params:  # AdamW's own lazy initial state, made now
+            self.adamw.state[p] = {
+                "step": torch.zeros((), device=p.device if capturable else "cpu"),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+            }
 
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
         """One update from the partition's gradients (None for a parameter
@@ -105,6 +126,19 @@ def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float):
         return init_value * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * frac)) + alpha)
 
     return schedule
+
+
+def epoch_chunks(num_updates: int, max_chunk: int) -> List[int]:
+    """The JAX ``train_epoch``'s chunks: near-equal sizes of at most
+    ``max_chunk`` (0: one chunk), the chunks one update larger first."""
+    if num_updates < 1:
+        raise ValueError(f"an epoch needs at least one update, got {num_updates}")
+    if not max_chunk or num_updates <= max_chunk:
+        return [num_updates]
+    n_chunks = -(-num_updates // max_chunk)
+    base = num_updates // n_chunks
+    rem = num_updates - base * n_chunks
+    return [base + 1] * rem + [base] * (n_chunks - rem)
 
 
 def subset(core: DiffusionActiveInference, groups: Sequence[str]) -> List[nn.Parameter]:
@@ -190,6 +224,8 @@ class BaseAgent:
         )
         self.device = self.core.device
         self.exploration_noise = training_config.exploration_noise
+        self.total_steps = 0
+        self._epoch_graphs = None  # agents/graphs.py's EpochGraphs, made on the first CUDA epoch
 
     def load_jax_params(self, params: Mapping) -> Tuple[str, ...]:
         """Load the JAX agent's parameters (``params`` as a nested dict of
@@ -221,3 +257,56 @@ class BaseAgent:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self.core.init_params(generator)
         return self.new_train_state(seed + 1)
+
+    # -- the epoch ------------------------------------------------------
+
+    def draw_update(self, state: AgentTrainState, replay_state: ReplayState, batch_size: int):
+        """The draws of one update from ``state.rng``, in the JAX scan
+        body's order: the batch's ring indices, then the train update's
+        draws. Returns (indices, draws)."""
+        indices = draw_indices(replay_state, batch_size, state.rng)
+        return indices, self.draw_train(state, batch_size)
+
+    def train_epoch(
+        self, state: AgentTrainState, replay_state: ReplayState, num_updates: int
+    ) -> Tuple[AgentTrainState, Dict[str, torch.Tensor]]:
+        """``num_updates`` updates (a batch of ``config.batch_size`` drawn
+        from ``replay_state``, then ``train_step_from_draws``), in the JAX
+        ``train_epoch``'s chunks (``epoch_chunks``). Returns the state and
+        every metric's mean over the updates (chunk means weighted by their
+        sizes, as JAX takes them), 0-d tensors on the device; nothing waits
+        for the card. On a CUDA device each update replays a captured CUDA
+        graph (``agents/graphs.py``; a capture that fails raises), and the
+        cached weight packs are dropped at the end, since replays move the
+        weights without their version counters. On the CPU the loop runs
+        eagerly."""
+        batch_size = self.config.batch_size
+        graphs = None
+        if self.device.type == "cuda":
+            from .graphs import EpochGraphs
+
+            if self._epoch_graphs is None:
+                self._epoch_graphs = EpochGraphs(self)
+            graphs = self._epoch_graphs
+        total: Optional[Dict[str, torch.Tensor]] = None
+        try:
+            for size in epoch_chunks(num_updates, self.training_config.epoch_chunk_updates):
+                if graphs is not None:
+                    sums = graphs.run(state, replay_state, batch_size, size)
+                else:
+                    sums = None
+                    for _ in range(size):
+                        indices, draws = self.draw_update(state, replay_state, batch_size)
+                        state, metrics = self.train_step_from_draws(
+                            state, replay_sample(replay_state, indices), draws
+                        )
+                        if sums is None:
+                            sums = {k: torch.zeros_like(v) for k, v in metrics.items()}
+                        sums = {k: sums[k] + metrics[k] for k in sums}
+                weighted = {k: v / size * size for k, v in sums.items()}
+                total = weighted if total is None else {k: total[k] + weighted[k] for k in total}
+        finally:
+            if graphs is not None:
+                forget_packed_trunks(self.core.score_network)
+        self.total_steps += num_updates
+        return state, {k: v / num_updates for k, v in total.items()}

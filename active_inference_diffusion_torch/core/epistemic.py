@@ -34,7 +34,7 @@ class EmaLogMeanExp(torch.autograd.Function):
     def forward(ctx, x: torch.Tensor, running_mean: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(x, running_mean)
         return torch.logsumexp(x.reshape(-1), dim=0) - torch.log(
-            torch.tensor(float(x.numel()), dtype=x.dtype, device=x.device)
+            torch.full((), float(x.numel()), dtype=x.dtype, device=x.device)
         )
 
     @staticmethod
@@ -53,7 +53,7 @@ def ema_loss(
     value itself while the EMA is still 0)."""
     with torch.no_grad():
         t_exp = torch.exp(torch.logsumexp(x.reshape(-1), dim=0) - torch.log(
-            torch.tensor(float(x.numel()), dtype=x.dtype, device=x.device)))
+            torch.full((), float(x.numel()), dtype=x.dtype, device=x.device)))
         new_running_mean = torch.where(
             running_mean == 0.0, t_exp, alpha * t_exp + (1.0 - alpha) * running_mean
         )

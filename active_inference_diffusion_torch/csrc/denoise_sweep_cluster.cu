@@ -328,7 +328,7 @@ struct Args {
   float* out;            // (B, D)
   char* arena;           // streamed plan: Plan::arena bytes per cluster; else unused
   int B, D, H, Hr, L, K, P;  // H: the kernel's hidden width, Hr <= H the model's
-  float mult;
+  const float* mult;     // the score network's output_multiplier, read at launch
   int stochastic;
 };
 
@@ -354,6 +354,7 @@ struct Ctx {
   const uint2* table;  // this rank's piece table: in shared memory, or global when streamed
   int rank, row0, step;
   unsigned seed;
+  float mult;        // *a.mult
   float cf[6];       // the step's s1 s2 c1 c2 sd mask
   int pc;            // pieces consumed (or being consumed) in the sweep
   int pc0;           // pieces consumed before this step
@@ -411,7 +412,7 @@ __device__ __forceinline__ void epilogue(Ctx<T>& c, int r, int col, float (&v)[8
       float m = 0.f;
       if (gc < c.a.D) {
         const float zi = c.zs[r * c.p.DC + lc];
-        const float sco = fminf(fmaxf(v[k], -10.f), 10.f) * c.a.mult;
+        const float sco = fminf(fmaxf(v[k], -10.f), 10.f) * c.mult;
         const float pz0 = (zi + s1 * sco) * s2;
         m = c1 * pz0 + c2 * zi;
         if (c.a.stochastic && mask != 0.f)
@@ -734,6 +735,7 @@ __global__ void __launch_bounds__(THREADS, 1) denoise_sweep_cluster_kernel(Args 
   c.table = S ? a.pieces + (size_t)c.rank * a.P : reinterpret_cast<const uint2*>(smem + p.table);
   c.row0 = cluster_id * TB;
   c.seed = a.stochastic ? (unsigned)(*a.seed & 0xFFFFFFFFll) : 0u;
+  c.mult = *a.mult;
   c.pc = c.pc0 = c.issued = c.chunks = 0;
   c.total = a.K * a.P;
   const int H = a.H, Hr = a.Hr, D = a.D, L = a.L, HC = p.HC, DC = p.DC;
@@ -892,8 +894,8 @@ int max_clusters_of(int variant, int streamed, size_t smem_bytes, int* count) {
 
 Args make_args(const float* z0, const float* obs_emb, const float* t_embs, const float* coeffs,
                const void* wk, const uint2* pieces, const long long* seed, float* out,
-               void* arena, int B, int D, int H, int Hr, int L, int K, int P, float mult,
-               int stochastic) {
+               void* arena, int B, int D, int H, int Hr, int L, int K, int P,
+               const float* mult, int stochastic) {
   Args a;
   a.z0 = z0, a.obs_emb = obs_emb, a.t_embs = t_embs, a.coeffs = coeffs;
   a.wk = wk, a.pieces = pieces, a.seed = seed, a.out = out;
@@ -915,7 +917,7 @@ Args make_args(const float* z0, const float* obs_emb, const float* t_embs, const
 #define AID_SWEEP(NAME, T, V)                                                                  \
   int NAME(const float* z0, const float* obs_emb, const float* t_embs, const float* coeffs,   \
            const void* wk, const uint2* pieces, const long long* seed, float* out,             \
-           void* arena, int B, int D, int H, int Hr, int L, int K, int P, float mult,          \
+           void* arena, int B, int D, int H, int Hr, int L, int K, int P, const float* mult,   \
            int stochastic, int streamed, size_t smem_bytes, cudaStream_t stream) {             \
     return launch<T, V>(make_args(z0, obs_emb, t_embs, coeffs, wk, pieces, seed, out, arena,   \
                                   B, D, H, Hr, L, K, P, mult, stochastic),                    \

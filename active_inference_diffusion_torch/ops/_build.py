@@ -98,8 +98,8 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[name]))
     p, i = ctypes.c_void_p, ctypes.c_int
     # z0, obs_emb, t_embs, coeffs, kernel weights, pieces, seed, out, arena,
-    # B D H Hr L K P, mult, stochastic, streamed, smem, stream
-    sweep = [p] * 9 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_size_t, p]
+    # B D H Hr L K P, output_multiplier (a device float), stochastic, streamed, smem, stream
+    sweep = [p] * 9 + [i] * 7 + [p, i, i, ctypes.c_size_t, p]
     signatures = {
         "aid_denoise_sweep": sweep,
         "aid_denoise_sweep_v2": sweep,

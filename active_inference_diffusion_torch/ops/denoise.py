@@ -41,7 +41,9 @@ head), the score clip and the p_sample update with in-kernel Gaussian noise.
 - Trunk weights are packed once per parameter set, variant and type into
   two contiguous buffers (``packed_trunk_weights``): the ``*_w`` arrays in
   the weight type, the ``*_b`` arrays in float32. The pack is cached on the
-  score network and rebuilt when any of its parameters changes.
+  score network and rebuilt when any of its parameters changes; inside a
+  CUDA graph's capture it is rebuilt every time. The output multiplier
+  stays on the device: the kernels read it through a pointer.
 
 Numerics: LayerNorm eps 1e-6 and tanh-approximate GELU, as the Flax modules.
 """
@@ -237,7 +239,10 @@ class PackedTrunk(NamedTuple):
     bfloat16), ``biases`` the ``*_b`` arrays in float32.
 
     ``offsets[name] = (element offset in its buffer, shape)``; each entry
-    starts on a 16-byte boundary. ``output_multiplier`` is a plain float.
+    starts on a 16-byte boundary. ``output_multiplier`` is a 0-d float32
+    tensor on the weights' device that views the score network's parameter
+    (not a copy), so the sweep reads its value when it runs: no host read at
+    pack time, and a captured sweep follows the trained value.
     A pack whose widths the kernels take also carries their
     ``KernelLayout`` in ``kernel``."""
 
@@ -248,7 +253,7 @@ class PackedTrunk(NamedTuple):
     latent_dim: int
     hidden_dim: int
     num_layers: int
-    output_multiplier: float
+    output_multiplier: torch.Tensor
     kernel: Optional[KernelLayout] = None
 
     @property
@@ -457,7 +462,9 @@ def pack_trunk_weights(
         latent_dim=lp.shape[0],
         hidden_dim=lp.shape[1],
         num_layers=weights["f1_w"].shape[0],
-        output_multiplier=float(weights["output_multiplier"].reshape(-1)[0]),
+        output_multiplier=torch.as_tensor(
+            weights["output_multiplier"], dtype=torch.float32, device=lp.device
+        ).reshape(-1)[0],
     )
     if kernel_takes(packed.latent_dim, packed.hidden_dim, packed.num_layers, dtype):
         packed = packed._replace(kernel=kernel_layout(packed))
@@ -470,19 +477,34 @@ def packed_trunk_weights(
     """The score network's ``PackedTrunk`` for one variant and weight type,
     cached on the module per (variant, type). The cache key holds every
     parameter's storage pointer and version counter, so any load or
-    in-place update of the weights rebuilds the pack."""
+    in-place update of the weights rebuilds the pack.
+
+    While the current stream captures a CUDA graph the pack is always
+    rebuilt and never cached: the gather then belongs to the graph, which
+    repacks the live weights at every replay, and no pack in the graph's
+    memory pool is handed to a later eager call. Replays update the weights
+    without moving their version counters, so whoever replays such a graph
+    calls ``forget_packed_trunks`` afterwards."""
+    capturing = score_net.output_multiplier.is_cuda and torch.cuda.is_current_stream_capturing()
     key = tuple((p.data_ptr(), p._version) for p in score_net.parameters())
     cache = score_net.__dict__.setdefault("_packed_trunks", {})
     cached = cache.get((variant, dtype))
-    if cached is not None and cached[0] == key:
+    if cached is not None and cached[0] == key and not capturing:
         return cached[1]
     with torch.no_grad():
         w = extract_trunk_weights(score_net)
         if variant == "v2":
             w = extract_trunk_weights_v2(w)
         packed = pack_trunk_weights(w, variant, dtype)
-    cache[(variant, dtype)] = (key, packed)
+    if not capturing:
+        cache[(variant, dtype)] = (key, packed)
     return packed
+
+
+def forget_packed_trunks(score_net) -> None:
+    """Drop the score network's cached packs, so the next sweep repacks the
+    weights it finds."""
+    score_net.__dict__.pop("_packed_trunks", None)
 
 
 def trunk_weight_bytes(hidden_dim: int, latent_dim: int, num_layers: int,
@@ -744,6 +766,10 @@ def _check_args(schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_lay
         raise ValueError(f"num_steps={num_steps} outside 1..{schedule.num_steps}")
     if weights.kernel is not None and weights.kernel.weights.device != device:
         raise ValueError(f"weights.kernel is on {weights.kernel.weights.device}, z0 on {device}")
+    mult = weights.output_multiplier
+    if not (isinstance(mult, torch.Tensor) and mult.device == device
+            and mult.dtype == torch.float32 and mult.dim() == 0):
+        raise TypeError("weights.output_multiplier must be a 0-d float32 tensor on z0's device")
 
 
 def _sweep(variant, schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers,
@@ -789,7 +815,8 @@ def _sweep(variant, schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num
             layout.weights.data_ptr(), layout.pieces.data_ptr(), seed.data_ptr(), out.data_ptr(),
             None if arena is None else arena.data_ptr(),
             b, d, plan.hidden, weights.hidden_dim, num_layers, num_steps, layout.pieces.shape[1],
-            weights.output_multiplier, 0 if deterministic else 1, int(plan.streamed), plan.smem,
+            weights.output_multiplier.data_ptr(), 0 if deterministic else 1, int(plan.streamed),
+            plan.smem,
             stream,
         )
     if err != 0:

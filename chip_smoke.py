@@ -6,7 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 It builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version, drives the state agent's acting
 paths (``DiffusionStateAgent.act`` and ``act_warm``) through every kernel
-and the flagship train update (``train_step``) through the float32 ones,
+and the flagship train update (``train_step``, and ``train_epoch`` over a
+device replay ring, each update a replayed CUDA graph) through the float32
+ones,
 runs the widths beyond the kernels' 48 MiB of trunk weights through the
 plain sweep on the card, and times them. Any failed phase raises, so the script exits non-zero;
 without a CUDA device it exits non-zero before printing a result. It
@@ -53,7 +55,20 @@ Phases:
    every 5th step only; then per variant one deterministic step from
    fresh states with ``TrainDraws`` shared with the CPU twin, held by
    ``compare_train_steps``, and for v1 a control step with TF32 products,
-   which must fail the MINE gradient's limit.
+   which must fail the MINE gradient's limit;
+   f. the replay ring and ``train_epoch`` (``epoch_phase``): a ring of
+   ``TrainingConfig.buffer_size`` (100,000) filled with 120,000 seeded
+   transitions, pos, size and a wrapped slot checked against a numpy model;
+   per variant two trainers with the same weights run steps 0-9 (MINE at 0
+   and 5) from the same state and draws, one as the eager loop of
+   ``train_step_from_draws``, one as ten ``train_epoch`` calls of one graph
+   replay each: every metric, every partition's parameters and moments, the
+   time importance, reward normaliser and MINE running mean within the
+   train check's tolerances (the largest difference printed), one sweep
+   launch per replay and per capture's warm-up, and ``act`` after the
+   epoch equal to the eager twin's; for v1 also ten replays under
+   torch.profiler (one sweep kernel and one graph launch each in the
+   trace) and an epoch of 300 updates in chunks of 150 and 150.
 5. times: each kernel against its plain version at its main path's shape
    (CUDA events), and at the other shapes of the timed list; for every row
    the plain version captured once in a CUDA graph and replayed
@@ -67,6 +82,11 @@ Phases:
    ``train_step`` at the flagship, batch 256, v1 and v2: median of 10
    (host clock, synchronised) after 3 warm-up steps, then 5 steps under
    torch.profiler (device time, the sweep's share, host time per phase).
+   ``train_epoch`` at the flagship, v1 (``epoch_times_phase``): the eager
+   loop against graph replays, 256 updates each in blocks of 16, in turns
+   (eager, graph, graph, eager): median ms per update and updates/s; then
+   ten replays under torch.profiler: device time and busy share, launches
+   per update outside the graph, the sweep's device time.
 6. the kernel summary line, the card line, and the result line.
 """
 
@@ -151,6 +171,15 @@ TRAIN_STEPS = {"v1": 5, "v2": 2}
 # A control step with TF32 products on the card must fail it.
 TRAIN_RTOL, TRAIN_ATOL, MOMENT_REL_L2, MINE_REL_L2 = 2e-4, 2e-5, 1e-4, 5e-3
 TRAIN_TIMED, TRAIN_WARMUP = 10, 3
+# The replay ring and train_epoch: TrainingConfig.buffer_size transitions at
+# the flagship's shapes, filled in blocks with 120,000 seeded transitions so
+# that it wraps once; graph replays held against the eager loop over steps 0-9
+# (MINE at 0 and 5) per variant; one profiled epoch of 10 replays; a chunked
+# epoch of 300 updates (chunks of 150 and 150 at epoch_chunk_updates 256); the
+# timed arms, 256 updates each in blocks of 16, in turns.
+RING_CAPACITY, RING_FILL, RING_BLOCK = 100_000, 120_000, 10_000
+EPOCH_COMPARED, EPOCH_PROFILED, EPOCH_CHUNKED = 10, 10, 300
+EPOCH_TIMED, EPOCH_BLOCK = 256, 16
 # Kernel vs plain sweep, elementwise |kernel - plain| <= atol + rtol |plain|.
 # float32: another summation order, compounded over up to 100 dependent
 # steps of 6 blocks. bfloat16 weights: the same rounding sites on both
@@ -391,28 +420,32 @@ def train_batch(batch: int, seed: int, device) -> dict:
 
 
 def compare_train_steps(state, metrics, twin_state, twin_metrics) -> dict:
-    """One train update on the card against the same update of the CPU
-    twin, both from fresh states (so g = first moment / 0.1): the worst
+    """One train update on the card against the same update of its twin
+    (the CPU twin, or another agent on the card), both from fresh states (so
+    g = first moment / 0.1; after more updates the moments are compared as
+    they stand): the worst
     err/tol of the metrics; per partition the relative L2 distance of its
     first moments, the worst err/tol of its parameters, and the elements
     under the sign rule with the partition's size, by the rule above."""
     def ratio(got, want, atol):
         return float(((got - want).abs() / (atol + TRAIN_RTOL * want.abs())).max())
 
-    out = {"metrics": max(ratio(metrics[k].cpu(), v, TRAIN_ATOL) for k, v in twin_metrics.items())}
+    out = {"metrics": max(ratio(metrics[k].cpu(), v.cpu(), TRAIN_ATOL)
+                          for k, v in twin_metrics.items())}
     for part, opt in state.optimizers.items():
         twin_opt = twin_state.optimizers[part]
         mus = [opt.adamw.state[p]["exp_avg"].cpu() for p in opt.params]
-        twin_mus = [twin_opt.adamw.state[p]["exp_avg"] for p in twin_opt.params]
+        twin_mus = [twin_opt.adamw.state[p]["exp_avg"].cpu() for p in twin_opt.params]
         flat, twin_flat = torch.cat([m.flatten() for m in mus]), torch.cat([m.flatten() for m in twin_mus])
         row = {"moments_rel_l2": float((flat - twin_flat).norm() / twin_flat.norm()),
                "params": 0.0, "sign_rule": 0, "elements": flat.numel()}
         lr = opt.adamw.param_groups[0]["lr"]
         for p, q, mu, twin_mu in zip(opt.params, twin_opt.params, mus, twin_mus):
+            q = q.detach().cpu()
             slack = 2 * lr * (torch.sign(mu) != torch.sign(twin_mu)).float()
             row["sign_rule"] += int(slack.count_nonzero())
-            bound = TRAIN_ATOL + TRAIN_RTOL * q.detach().abs() + slack
-            row["params"] = max(row["params"], float(((p.detach().cpu() - q.detach()).abs() / bound).max()))
+            bound = TRAIN_ATOL + TRAIN_RTOL * q.abs() + slack
+            row["params"] = max(row["params"], float(((p.detach().cpu() - q).abs() / bound).max()))
         out[part] = row
     return out
 
@@ -467,6 +500,148 @@ def profile_ms(fn, calls: int, names: str) -> dict:
                 kernels_per_call=len(kernels) / calls, phases_host_ms=phases)
 
 
+def fill_ring(dev, seed: int = 320):
+    """A ``DeviceReplayBuffer`` of ``RING_CAPACITY`` transitions at the
+    flagship's shapes, filled with ``RING_FILL`` seeded ones in blocks of
+    ``RING_BLOCK``, and a plain numpy model of the same ring; returns the
+    buffer and a description of the check. Raises where pos, size or a
+    slot written on the second pass differ from the model's."""
+    from active_inference_diffusion_torch.data.replay import DeviceReplayBuffer
+
+    rng = np.random.default_rng(seed)
+    fields = {
+        "observations": rng.standard_normal((RING_FILL, FLAGSHIP_OBS), dtype=np.float32),
+        "actions": np.tanh(rng.standard_normal((RING_FILL, FLAGSHIP_ACT), dtype=np.float32)),
+        "rewards": rng.standard_normal(RING_FILL, dtype=np.float32),
+        "next_observations": rng.standard_normal((RING_FILL, FLAGSHIP_OBS), dtype=np.float32),
+        "dones": rng.random(RING_FILL) < 0.05,
+    }
+    ring = DeviceReplayBuffer(RING_CAPACITY, (FLAGSHIP_OBS,), FLAGSHIP_ACT, device=dev)
+    model = {k: np.zeros((RING_CAPACITY,) + v.shape[1:], v.dtype) for k, v in fields.items()}
+    pos = size = 0
+    for start in range(0, RING_FILL, RING_BLOCK):
+        block = {k: v[start : start + RING_BLOCK] for k, v in fields.items()}
+        ring.add_batch(*block.values())
+        for k, v in block.items():
+            model[k][(pos + np.arange(RING_BLOCK)) % RING_CAPACITY] = v
+        pos, size = (pos + RING_BLOCK) % RING_CAPACITY, min(size + RING_BLOCK, RING_CAPACITY)
+    st = ring.state
+    got = (int(st.pos), int(st.size), st.host_pos, st.host_size, len(ring))
+    if got != (pos, size, pos, size, size):
+        raise RuntimeError(f"ring: pos, size, host mirrors, len {got}, the model's {pos}, {size}")
+    slot = 5  # written by transition RING_CAPACITY + 5, on the second pass
+    for k in fields:
+        if not np.array_equal(getattr(st, k)[slot].cpu().numpy(), model[k][slot]):
+            raise RuntimeError(f"ring: slot {slot} of {k} differs from the model's")
+    if not np.array_equal(st.observations[slot].cpu().numpy(), fields["observations"][RING_CAPACITY + slot]):
+        raise RuntimeError(f"ring: slot {slot} does not hold transition {RING_CAPACITY + slot}")
+    return ring, (f"{RING_FILL} transitions in blocks of {RING_BLOCK} into {RING_CAPACITY}: pos "
+                  f"{got[0]}, size {got[1]} (host mirrors {got[2]}, {got[3]}) as the model's; slot "
+                  f"{slot} holds transition {RING_CAPACITY + slot} in every field")
+
+
+def eager_updates(agent, state, ring_state, updates: int):
+    """The eager loop of ``train_step_from_draws``, each update drawn as
+    ``train_epoch`` draws it (ring indices, then the update's draws, from
+    ``state.rng``): returns the state and every update's metrics."""
+    from active_inference_diffusion_torch.data.replay import replay_sample
+
+    out = []
+    for _ in range(updates):
+        indices, draws = agent.draw_update(state, ring_state, agent.config.batch_size)
+        state, metrics = agent.train_step_from_draws(state, replay_sample(ring_state, indices),
+                                                     draws)
+        out.append(metrics)
+    return state, out
+
+
+def graph_updates(agent, state, ring_state, updates: int):
+    """``updates`` calls of ``train_epoch`` of one update each (graph
+    replays on the card): returns the state and every update's metrics."""
+    out = []
+    for _ in range(updates):
+        state, metrics = agent.train_epoch(state, ring_state, 1)
+        out.append(metrics)
+    return state, out
+
+
+def largest_difference(agent, state, metrics, twin, twin_state, twin_metrics) -> tuple:
+    """The largest absolute difference between two trainings, and where:
+    every update's metrics, the parameters, the optimizers' moments, the
+    score EMA, the time importance, the reward normaliser and the MINE
+    running mean."""
+    pairs = [(f"update {i} {k}", m[k], w[k])
+             for i, (m, w) in enumerate(zip(metrics, twin_metrics)) for k in w]
+    pairs += [(f"parameter {n}", p, q) for (n, p), q in
+              zip(agent.core.named_parameters(), twin.core.parameters())]
+    for part, opt in state.optimizers.items():
+        for i, (p, q) in enumerate(zip(opt.params, twin_state.optimizers[part].params)):
+            for name in ("exp_avg", "exp_avg_sq"):
+                pairs.append((f"{part} {name} {i}", opt.adamw.state[p][name],
+                              twin_state.optimizers[part].adamw.state[q][name]))
+    pairs += [(f"EMA {k}", state.ema_score[k], twin_state.ema_score[k]) for k in state.ema_score]
+    norm, twin_norm = state.reward_norm, twin_state.reward_norm
+    pairs += [("time importance", state.time_importance, twin_state.time_importance),
+              ("MINE running mean", state.epistemic_running_mean,
+               twin_state.epistemic_running_mean),
+              ("reward mean", norm.mean, twin_norm.mean), ("reward var", norm.var, twin_norm.var),
+              ("reward count", norm.count, twin_norm.count)]
+    diffs = [(float((a.detach() - b.detach()).abs().max()), where) for where, a, b in pairs]
+    return max(diffs)
+
+
+def profile_epoch(agent, state, ring_state, updates: int) -> tuple:
+    """One ``train_epoch`` of ``updates`` replays under torch.profiler: the
+    sweep kernels in the device trace, the graph launches, the host's
+    launches outside the graphs per update (kernels, copies and fills), the
+    device ms per update summed over its kernels, the sweep's, and the host
+    ms per update. Returns (state, that dict)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = agent.train_epoch(state, ring_state, updates)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / updates
+    events = prof.events()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    runtime = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    sweeps = [e for e in device if "denoise_sweep" in e.name]
+    outside = sum(1 for n in runtime if ("LaunchKernel" in n or "Memcpy" in n or "Memset" in n)
+                  and "Graph" not in n)
+    return state, dict(
+        sweep_kernels=len(sweeps), graph_launches=sum(1 for n in runtime if "GraphLaunch" in n),
+        launches_outside=outside / updates,
+        device_ms=sum(e.time_range.elapsed_us() for e in device) / 1e3 / updates,
+        sweep_ms=sum(e.time_range.elapsed_us() for e in sweeps) / 1e3 / updates,
+        host_ms=host, metrics_finite=all(bool(torch.isfinite(v)) for v in metrics.values()))
+
+
+def epoch_times(eager, eager_state, graph, graph_state, ring_state, updates=EPOCH_TIMED,
+                block=EPOCH_BLOCK) -> tuple:
+    """The eager loop against ``train_epoch`` in graphs, ``updates`` each in
+    blocks of ``block`` (host clock, synchronised), in turns: eager, graph,
+    graph, eager, half the updates a turn. Returns the two states and, per
+    arm, the median ms per update over its blocks and updates/s over all
+    its updates."""
+    def eager_block():
+        nonlocal eager_state
+        eager_state, _ = eager_updates(eager, eager_state, ring_state, block)
+
+    def graph_block():
+        nonlocal graph_state
+        graph_state, _ = graph.train_epoch(graph_state, ring_state, block)
+
+    arms = {"eager": eager_block, "graph": graph_block}
+    per_update = {arm: [] for arm in arms}
+    for arm in ("eager", "graph", "graph", "eager"):
+        per_update[arm] += [ms / block for ms in host_ms(arms[arm], updates // 2 // block)]
+    out = {arm: dict(median_ms=statistics.median(v), updates_per_s=1e3 / statistics.mean(v),
+                     updates=len(v) * block) for arm, v in per_update.items()}
+    return eager_state, graph_state, out
+
+
 def host_ms(fn, calls: int) -> list:
     times = []
     for _ in range(calls):
@@ -476,6 +651,158 @@ def host_ms(fn, calls: int) -> list:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return times
+
+
+def epoch_phase(dev, launches: dict) -> tuple:
+    """Phase 4f: the ring and ``train_epoch`` at the flagship, per variant:
+    the eager loop against graph replays, the profiled launches, the
+    chunked epoch and ``act`` after the epoch (see ``main``). Adds the
+    launches to ``launches``; returns the ring and, per variant, the
+    (eager agent, its state, graph agent, its state) after it."""
+    from active_inference_diffusion_torch.ops.denoise import (
+        KERNELS,
+        LAUNCHES,
+        PLAIN_RUNS,
+        kernel_name,
+    )
+
+    ring, described = fill_ring(dev)
+    log(f"[4 epoch] ring: {described}")
+    obs_act = np.random.default_rng(330).standard_normal((FLAGSHIP["batch"], FLAGSHIP_OBS))
+    obs_act = obs_act.astype(np.float32)
+    epoch_pairs = {}
+    for variant in ("v1", "v2"):
+        kernel = kernel_name(variant, torch.float32)
+        pair = [flagship_agent(dev, train=True) for _ in range(2)]  # eager, graph: the same weights
+        for agent in pair:
+            agent.config.tpu.denoiser_kernel = variant
+        eager, graph = pair
+        states = [agent.new_train_state(305) for agent in pair]
+        for name in KERNELS:
+            LAUNCHES[name] = PLAIN_RUNS[name] = 0
+        before_acts = [agent.act(obs_act, torch.Generator(device=dev).manual_seed(331),
+                                 deterministic=True, collect=False) for agent in pair]
+        eager_state, eager_metrics = eager_updates(eager, states[0], ring.state, EPOCH_COMPARED)
+        torch.cuda.synchronize()
+        eager_launches = LAUNCHES[kernel]
+        graph_state, graph_metrics = graph_updates(graph, states[1], ring.state, EPOCH_COMPARED)
+        torch.cuda.synchronize()
+        captures = graph._epoch_graphs.captures
+        graph_launches = LAUNCHES[kernel] - eager_launches
+        counts = (dict(LAUNCHES), dict(PLAIN_RUNS))
+        log(f"[4 epoch] flagship {variant}-f32 B={FLAGSHIP['batch']}: {EPOCH_COMPARED} updates "
+            f"from step 0 eagerly, then as {EPOCH_COMPARED} train_epoch calls of one graph replay "
+            f"each ({captures} graphs captured, each after one warm-up update): launches "
+            f"{counts[0]} (eager {eager_launches - 2}, acts 2, graph epoch {graph_launches}), plain "
+            f"runs {sum(counts[1].values())}")
+        want = EPOCH_COMPARED + captures
+        if (captures != 2 or graph_launches != want or eager_launches != EPOCH_COMPARED + 2
+                or sum(LAUNCHES.values()) != LAUNCHES[kernel] or sum(counts[1].values())):
+            raise RuntimeError(f"epoch {variant}: expected 2 captures and {want} launches of "
+                               f"{kernel} in the graph epoch, {EPOCH_COMPARED} eager, no other")
+        mines = [step for step, m in enumerate(graph_metrics) if float(m["epistemic_mi"]) != 0.0]
+        if mines != [0, 5] or graph_state.step != EPOCH_COMPARED:
+            raise RuntimeError(f"epoch {variant}: MINE at steps {mines}, step {graph_state.step}")
+        worst = compare_train_steps(graph_state, graph_metrics[-1], eager_state, eager_metrics[-1])
+        worst["metrics"] = max(
+            float(((g[k] - w[k]).abs() / (TRAIN_ATOL + TRAIN_RTOL * w[k].abs())).max())
+            for g, w in zip(graph_metrics, eager_metrics) for k in w)
+        largest, where = largest_difference(graph, graph_state, graph_metrics, eager,
+                                            eager_state, eager_metrics)
+        log(f"[4 epoch] flagship {variant} graph replays vs eager loop over steps 0-"
+            f"{EPOCH_COMPARED - 1}: largest difference {largest:.3e}, in {where} (over the "
+            "metrics of every update, parameters, moments, EMA, time importance, reward "
+            "normaliser, MINE running mean); " + describe_train_comparison(worst))
+        failed = train_step_fails(worst)
+        if failed:
+            raise RuntimeError(f"epoch {variant}: the graph replays disagree with the eager "
+                               f"loop: {failed}")
+        for name, (a, b) in {"time importance": (graph_state.time_importance,
+                                                 eager_state.time_importance),
+                             "MINE running mean": (graph_state.epistemic_running_mean,
+                                                   eager_state.epistemic_running_mean),
+                             "reward mean": (graph_state.reward_norm.mean,
+                                             eager_state.reward_norm.mean),
+                             "reward variance": (graph_state.reward_norm.var,
+                                                 eager_state.reward_norm.var)}.items():
+            if float(((a - b).abs() / (TRAIN_ATOL + TRAIN_RTOL * b.abs())).max()) > 1.0:
+                raise RuntimeError(f"epoch {variant}: the {name} disagrees")
+        # R2: act after graph epochs uses the replays' weights, not a pack cached before them
+        acts = [agent.act(obs_act, torch.Generator(device=dev).manual_seed(331),
+                          deterministic=True, collect=False) for agent in pair]
+        act_err = float(np.abs(acts[0] - acts[1]).max())
+        act_moved = float(np.abs(acts[1] - before_acts[1]).max())
+        log(f"[4 epoch] flagship {variant} act after the graph epoch vs after the eager loop: "
+            f"max|err| {act_err:.3e} (tol {ACT_ATOL[torch.float32]:g}); before them the two "
+            f"agents' "
+            f"actions differ by {float(np.abs(before_acts[0] - before_acts[1]).max()):.3e}; the "
+            f"updates moved the actions by up to {act_moved:.3e}")
+        if act_err > ACT_ATOL[torch.float32] or act_moved == 0.0:
+            raise RuntimeError(f"epoch {variant}: act after the graph epoch differs from the "
+                               "eager twin's, or the updates did not move it")
+        launches[kernel] += sum(LAUNCHES.values())  # the acts included
+
+        if variant == "v1":
+            # one sweep kernel per replayed update, from the profiler's device trace
+            for name in KERNELS:
+                LAUNCHES[name] = 0
+            graph_state, prof = profile_epoch(graph, graph_state, ring.state, EPOCH_PROFILED)
+            log(f"[4 epoch] flagship v1 profiled train_epoch of {EPOCH_PROFILED} updates: "
+                f"{prof['sweep_kernels']} sweep kernels and {prof['graph_launches']} graph "
+                f"launches in the trace, launches counted {LAUNCHES[kernel]}")
+            if (prof["sweep_kernels"] != EPOCH_PROFILED or prof["graph_launches"] != EPOCH_PROFILED
+                    or LAUNCHES[kernel] != EPOCH_PROFILED or not prof["metrics_finite"]):
+                raise RuntimeError("epoch: the profiler does not see one sweep kernel and one "
+                                   "graph launch per replayed update")
+            launches[kernel] += LAUNCHES[kernel]
+            # a chunked epoch: 300 updates in chunks of 150 and 150
+            from active_inference_diffusion_torch.agents.base import epoch_chunks
+
+            chunks = epoch_chunks(EPOCH_CHUNKED, graph.training_config.epoch_chunk_updates)
+            LAUNCHES[kernel] = 0
+            total_before, step_before = graph.total_steps, graph_state.step
+            t0 = time.perf_counter()
+            graph_state, metrics = graph.train_epoch(graph_state, ring.state, EPOCH_CHUNKED)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+            log(f"[4 epoch] flagship v1 train_epoch of {EPOCH_CHUNKED} updates in chunks "
+                f"{chunks}: {seconds:.3f} s, total_steps {total_before} -> {graph.total_steps}, "
+                f"step {step_before} -> {graph_state.step}, launches {LAUNCHES[kernel]}, metrics "
+                + json.dumps({k: round(float(v), 6) for k, v in metrics.items()}))
+            if (bad or chunks != [150, 150] or graph.total_steps - total_before != EPOCH_CHUNKED
+                    or graph_state.step - step_before != EPOCH_CHUNKED
+                    or LAUNCHES[kernel] != EPOCH_CHUNKED):
+                raise RuntimeError(f"epoch: the chunked epoch failed: non-finite {bad}")
+            launches[kernel] += LAUNCHES[kernel]
+        epoch_pairs[variant] = (eager, eager_state, graph, graph_state)
+    return ring, epoch_pairs
+
+
+def epoch_times_phase(ring, epoch_pairs: dict, launches: dict, card: str) -> None:
+    """Phase 5, ``train_epoch``: the eager loop against graph replays at
+    the flagship, v1, timed in turns and profiled; adds the launches to
+    ``launches``."""
+    from active_inference_diffusion_torch.ops.denoise import KERNELS, LAUNCHES
+
+    eager, eager_state, graph, graph_state = epoch_pairs["v1"]
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+    eager_state, graph_state, times = epoch_times(eager, eager_state, graph, graph_state,
+                                                  ring.state)
+    graph_state, prof = profile_epoch(graph, graph_state, ring.state, EPOCH_PROFILED)
+    launches["denoise_sweep_v1_f32"] += LAUNCHES["denoise_sweep_v1_f32"]
+    log(f"[5 times] train_epoch flagship v1-f32 B={FLAGSHIP['batch']}, {EPOCH_TIMED} updates an "
+        f"arm in blocks of {EPOCH_BLOCK}, in turns (eager, graph, graph, eager): eager loop median "
+        f"{times['eager']['median_ms']:.4f} ms an update, {times['eager']['updates_per_s']:.3f} "
+        f"updates/s; graph replays median {times['graph']['median_ms']:.4f} ms an update, "
+        f"{times['graph']['updates_per_s']:.3f} updates/s "
+        f"({times['graph']['updates_per_s'] / times['eager']['updates_per_s']:.2f}x); "
+        f"profiled over {EPOCH_PROFILED} replays: host {prof['host_ms']:.4f} ms, device "
+        f"{prof['device_ms']:.4f} ms an update, device busy "
+        f"{prof['device_ms'] / prof['host_ms']:.3%}, "
+        f"{prof['launches_outside']:.1f} launches an update outside the graph (kernels, copies, "
+        f"fills), sweep kernel {prof['sweep_ms']:.4f} ms an update | {card}")
 
 
 def main() -> int:
@@ -780,6 +1107,10 @@ def main() -> int:
     for kernel, count in train_launches.items():
         launches[kernel] += count
 
+    # 4f. The replay ring and train_epoch: each update a replayed CUDA graph.
+    ring, epoch_pairs = epoch_phase(dev, launches)
+
+
     # -- 5. times -----------------------------------------------------------
     hum = dict(batch=256, latent=64, hidden=256, layers=6, schedule_len=50, steps=50)
     flag = dict(batch=256, latent=32, hidden=128, layers=6, schedule_len=25, steps=25)
@@ -895,6 +1226,9 @@ def main() -> int:
             + json.dumps({k: round(v, 3) for k, v in prof["phases_host_ms"].items()})
             + f" | {card}")
     train_cfg.tpu.denoiser_kernel = "v1"
+
+    # train_epoch at the flagship, v1: the eager loop against graph replays, in turns
+    epoch_times_phase(ring, epoch_pairs, launches, card)
 
     # -- 6. summary ---------------------------------------------------------
     print(json.dumps({"kernels": [{

@@ -196,10 +196,10 @@ def test_beliefs_match_jax_generate_beliefs():
     obs = normal(22, B, OBS_DIM)
     key = jax.random.PRNGKey(23)
     z0 = jax_normal(jax.random.split(key)[0], B, D)
+    generate = jax.jit(functools.partial(jcore.generate_beliefs, deterministic=True,
+                                         compute_reconstruction=False))
     for batch in (B, 1):  # ddof=1 std; zeros at batch 1
-        expected = jcore.generate_beliefs(
-            params, key, obs[:batch], deterministic=True, compute_reconstruction=False
-        )
+        expected = generate(params, key, obs[:batch])
         got = tcore.beliefs_from_start(t(obs[:batch]), t(z0[:batch]), SEED, deterministic=True)
         for name in ("latent", "latent_mean", "latent_std"):
             np.testing.assert_allclose(
@@ -287,7 +287,8 @@ def test_default_device_is_cuda():
 def test_port_imports_no_jax():
     """Building the humanoid_state.yaml agent on the CPU and calling ``act``
     and ``act_warm``, then one ``train_step`` of the same config cut to a
-    tiny width, loads no module of jax, flax or the JAX package."""
+    tiny width and a ``train_epoch`` of two updates over a device replay
+    ring on the CPU, loads no module of jax, flax or the JAX package."""
     code = (
         "import sys\n"
         "import numpy as np, torch\n"
@@ -314,6 +315,14 @@ def test_port_imports_no_jax():
         "    ('actions', (2, HUMANOID_ACT_DIM)), ('rewards', (2,)), ('dones', (2,)))}\n"
         "state, metrics = agent.train_step(state, batch)\n"
         "assert state.step == 1 and all(bool(torch.isfinite(v)) for v in metrics.values())\n"
+        "from active_inference_diffusion_torch.data.replay import DeviceReplayBuffer\n"
+        "cfg.batch_size = 4\n"
+        "ring = DeviceReplayBuffer(8, (HUMANOID_OBS_DIM,), HUMANOID_ACT_DIM, device='cpu')\n"
+        "ring.add_batch(*(rng.standard_normal(s) for s in ((5, HUMANOID_OBS_DIM),\n"
+        "    (5, HUMANOID_ACT_DIM), (5,), (5, HUMANOID_OBS_DIM))), rng.random(5) < 0.2)\n"
+        "state, metrics = agent.train_epoch(state, ring.state, 2)\n"
+        "assert state.step == 3 and agent.total_steps == 2\n"
+        "assert all(bool(torch.isfinite(v)) for v in metrics.values())\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "                ('jax', 'flax', 'active_inference_diffusion_tpu'))\n"
         "assert not loaded, loaded\n"

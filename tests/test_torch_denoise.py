@@ -246,6 +246,45 @@ def test_stochastic_sweep_seeds(cores):
     assert torch.equal(run(3, True), run(4, True))
 
 
+def test_pack_views_the_output_multiplier(cores):
+    """R1: every pack's ``output_multiplier`` is a 0-d float32 tensor that
+    views the score network's parameter, so an in-place change reaches the
+    sweep without a repack; nothing on the pack or launch path reads a
+    tensor to the host."""
+    import inspect
+    import re
+
+    from active_inference_diffusion_torch.ops import denoise
+
+    net = cores[2].score_network
+    for variant in ("v1", "v2"):
+        mult = packed_trunk_weights(net, variant).output_multiplier
+        assert isinstance(mult, torch.Tensor) and mult.dim() == 0 and mult.dtype == torch.float32
+        assert mult.data_ptr() == net.output_multiplier.data_ptr()
+    packed = packed_trunk_weights(net)
+    h = packed.hidden_dim
+    args = (cores[2].schedule, packed, t(normal(8, B, D)), torch.zeros(B, h), torch.zeros(K, h),
+            torch.tensor(0), K, L)
+    before = denoise.denoise_sweep_reference(*args, deterministic=True)
+    saved = float(net.output_multiplier)
+    with torch.no_grad():
+        net.output_multiplier.fill_(saved * 3.0)
+    try:
+        moved = denoise.denoise_sweep_reference(*args, deterministic=True)
+    finally:
+        with torch.no_grad():
+            net.output_multiplier.fill_(saved)
+    assert float(packed.output_multiplier) == pytest.approx(saved)
+    assert not torch.allclose(before, moved)
+    path = (denoise.extract_trunk_weights, denoise.extract_trunk_weights_v2,
+            denoise.pack_trunk_weights, denoise.packed_trunk_weights, denoise.kernel_layout,
+            denoise.sweep_coefficients, denoise._check_args, denoise._sweep)
+    for fn in path:  # a host read: the builtin float() of a tensor, .item(), or a copy out
+        source = inspect.getsource(fn)
+        assert not re.search(r"(?<![.\w])float\(|\.item\(|\.cpu\(|\.tolist\(|\.numpy\(",
+                             source), fn.__name__
+
+
 def test_packed_weights_round_trip_and_cache(cores):
     jcore, params, tcore = cores
     net = tcore.score_network
@@ -257,7 +296,7 @@ def test_packed_weights_round_trip_and_cache(cores):
     views = packed.views()
     for name, value in extract_trunk_weights(net).items():
         if name == "output_multiplier":
-            assert packed.output_multiplier == pytest.approx(float(value[0]))
+            assert float(packed.output_multiplier) == pytest.approx(float(value[0]))
             continue
         assert torch.equal(views[name], value)
         np.testing.assert_array_equal(views[name].numpy(), np.asarray(expected[name]))

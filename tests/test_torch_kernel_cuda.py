@@ -14,7 +14,9 @@ one-ulp float32 difference (the tensor cores sum in another order) can flip
 a bfloat16 rounding of an activation, and the flip carries through the
 later steps: rtol 1e-2 / atol 5e-3. The kernels pad a hidden width to a
 multiple of 64; most small shapes use hidden 64, and the padded and the
-streamed plans have tests of their own.
+streamed plans have tests of their own. The last tests hold ``train_epoch``
+on the card, each update a replayed CUDA graph, against the eager loop of
+the same updates, and a capture that fails.
 """
 
 import numpy as np
@@ -29,6 +31,7 @@ from active_inference_diffusion_torch import (
 )
 from active_inference_diffusion_torch.configs.config import BeliefDynamicsConfig
 from active_inference_diffusion_torch.core.schedules import make_schedule
+from active_inference_diffusion_torch.data.replay import DeviceReplayBuffer, replay_sample
 from active_inference_diffusion_torch.models.score_network import LatentScoreNetwork
 from active_inference_diffusion_torch.ops.denoise import (
     LAUNCHES,
@@ -187,7 +190,7 @@ def test_bf16_kernels_at_the_humanoid_width(cuda, variant, batch, deterministic)
     args = list(sweep_args(cuda, batch, 64, 256, 6, steps=5, seed=batch, variant=variant,
                            dtype=torch.bfloat16))
     args[0] = make_schedule(50, "cosine", device=cuda)
-    args[1] = args[1]._replace(output_multiplier=1.0)
+    args[1] = args[1]._replace(output_multiplier=torch.ones((), device=cuda))
     name = kernel_name(variant, torch.bfloat16)
     before = dict(LAUNCHES)
     got = WRAPPERS[variant](*args, deterministic=deterministic)
@@ -247,7 +250,7 @@ def _wide_sweep(cuda, variant, batch, latent, hidden, schedule_len, steps, deter
     args = list(sweep_args(cuda, batch, latent, hidden, 6, steps=steps, seed=batch,
                            variant=variant))
     args[0] = make_schedule(schedule_len, "cosine", device=cuda)
-    args[1] = args[1]._replace(output_multiplier=1.0)
+    args[1] = args[1]._replace(output_multiplier=torch.ones((), device=cuda))
     name = kernel_name(variant, torch.float32)
     before = dict(LAUNCHES)
     got = WRAPPERS[variant](*args, deterministic=deterministic)
@@ -319,7 +322,7 @@ def test_kernels_in_the_streamed_plan(cuda, variant, width, batch, deterministic
     args = list(sweep_args(cuda, batch, latent, hidden, layers, steps=5, seed=batch,
                            variant=variant, dtype=dtype))
     args[0] = make_schedule(100, "cosine", device=cuda)
-    args[1] = args[1]._replace(output_multiplier=1.0)
+    args[1] = args[1]._replace(output_multiplier=torch.ones((), device=cuda))
     assert kernel_plan(args[1]).streamed
     name = kernel_name(variant, dtype)
     before = dict(LAUNCHES)
@@ -434,3 +437,142 @@ def test_train_step_launches_the_sweep_once(cuda, kernel):
         moved = [not torch.equal(p, b) for p, b in zip(agent.core.parameters(), before)
                  if any(p is q for q in opt.params)]
         assert any(moved), part
+
+
+def test_kernel_follows_output_multiplier_in_place(cuda):
+    """R1: the pack views the score network's ``output_multiplier`` on the
+    card, and the kernel reads it when it runs: an in-place change after the
+    pack is built moves the kernel's output without a repack."""
+    args = sweep_args(cuda, 8, 8, 64, 2, steps=5)
+    mult = args[1].output_multiplier
+    assert mult.is_cuda and mult.dim() == 0
+    first = fused_denoise_sweep(*args, deterministic=True)
+    with torch.no_grad():
+        mult.fill_(2.5)
+    again = fused_denoise_sweep(*args, deterministic=True)
+    torch.cuda.synchronize()
+    assert not torch.allclose(first, again, **TOL[torch.float32])
+    want = denoise_sweep_reference(*args, deterministic=True)
+    np.testing.assert_allclose(again.cpu().numpy(), want.cpu().numpy(), **TOL[torch.float32])
+
+
+def _epoch_pair(cuda, latent=8, hidden=64, layers=2, steps=5, batch=16, chunk=256):
+    """Two agents with the same weights and fresh train states, and one
+    seeded ring of 200 transitions on the card."""
+    cfg = ActiveInferenceConfig(
+        observation_dim=OBS_DIM, action_dim=2, latent_dim=latent, hidden_dim=hidden,
+        score_num_layers=layers, batch_size=batch,
+        diffusion=DiffusionConfig(num_diffusion_steps=steps),
+    )
+    agents = [DiffusionStateAgent(OBS_DIM, 2, cfg, TrainingConfig(epoch_chunk_updates=chunk))
+              for _ in range(2)]
+    states = [agent.init_train_state(0) for agent in agents]
+    ring = DeviceReplayBuffer(256, (OBS_DIM,), 2)
+    rng = np.random.default_rng(4)
+    ring.add_batch(rng.standard_normal((200, OBS_DIM)), np.tanh(rng.standard_normal((200, 2))),
+                   rng.standard_normal(200), rng.standard_normal((200, OBS_DIM)),
+                   rng.random(200) < 0.1)
+    return agents, states, ring.state
+
+
+def _eager_updates(agent, state, ring, updates):
+    """The eager loop of ``train_step_from_draws``, drawn as ``train_epoch``
+    draws; returns the state and each update's metrics."""
+    out = []
+    for _ in range(updates):
+        indices, draws = agent.draw_update(state, ring, agent.config.batch_size)
+        state, metrics = agent.train_step_from_draws(state, replay_sample(ring, indices), draws)
+        out.append(metrics)
+    return state, out
+
+
+def _assert_same_training(graph_agent, graph_state, eager_agent, eager_state):
+    for got, want in zip(graph_agent.core.parameters(), eager_agent.core.parameters()):
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+    for got, want in ((graph_state.time_importance, eager_state.time_importance),
+                      (graph_state.epistemic_running_mean, eager_state.epistemic_running_mean),
+                      (graph_state.reward_norm.mean, eager_state.reward_norm.mean),
+                      (graph_state.reward_norm.var, eager_state.reward_norm.var)):
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+    assert graph_state.step == eager_state.step
+    assert all(graph_state.optimizers[k].count == o.count for k, o in eager_state.optimizers.items())
+
+
+def test_graph_epoch_matches_the_eager_loop_across_a_mine_step(cuda):
+    """Six updates from step 0 (MINE at steps 0 and 5) as graph replays,
+    one ``train_epoch`` call each, against the eager loop with the same
+    draws: every update's metrics, then the parameters and the state's
+    fields. One sweep launch counted per replayed update, and one per
+    capture's warm-up."""
+    (graph, eager), (gstate, estate), ring = _epoch_pair(cuda)
+    name = kernel_name("v1", torch.float32)
+    before = dict(LAUNCHES)
+    got = []
+    for _ in range(6):
+        gstate, metrics = graph.train_epoch(gstate, ring, 1)
+        got.append(metrics)
+    captures = graph._epoch_graphs.captures
+    assert captures == 2
+    assert LAUNCHES == {**before, name: before[name] + 6 + captures}
+    estate, want = _eager_updates(eager, estate, ring, 6)
+    for step, (g, w) in enumerate(zip(got, want)):
+        assert set(g) == set(w)
+        assert (float(g["epistemic_mi"]) != 0.0) == (step in (0, 5))
+        for k in w:
+            torch.testing.assert_close(g[k], w[k], **TOL[torch.float32], msg=f"{step} {k}")
+    _assert_same_training(graph, gstate, eager, estate)
+    assert graph.total_steps == 6
+
+
+def test_act_after_a_graph_epoch_equals_the_eager_twin(cuda):
+    """R2: ``act`` after graph epochs uses the weights the replays wrote,
+    not a pack cached before them: epoch, act, epoch, act, against the same
+    updates run eagerly."""
+    (graph, eager), (gstate, estate), ring = _epoch_pair(cuda)
+    obs = np.random.default_rng(6).standard_normal((8, OBS_DIM)).astype(np.float32)
+    for _ in range(2):
+        gstate, _ = graph.train_epoch(gstate, ring, 3)
+        estate, _ = _eager_updates(eager, estate, ring, 3)
+        acts = [agent.act(obs, torch.Generator(device=cuda).manual_seed(1), deterministic=True)
+                for agent in (graph, eager)]
+        np.testing.assert_allclose(acts[0], acts[1], **TOL[torch.float32])
+    _assert_same_training(graph, gstate, eager, estate)
+
+
+def test_graph_epoch_where_the_card_runs_the_plain_sweep(cuda):
+    """float32 at latent 128 / hidden 384, 6 blocks, K=25, batch 32: beyond
+    the kernels' 48 MiB, the plain sweep runs inside the captured update,
+    counted once per replay; chunks of 2 and 1; the same training as the
+    eager loop."""
+    (graph, eager), (gstate, estate), ring = _epoch_pair(cuda, 128, 384, 6, 25, 32, chunk=2)
+    assert graph.core.sweep_uses_kernel is False
+    name = kernel_name("v1", torch.float32)
+    launches, plain = dict(LAUNCHES), dict(PLAIN_RUNS)
+    gstate, metrics = graph.train_epoch(gstate, ring, 3)
+    assert LAUNCHES == launches
+    assert PLAIN_RUNS == {**plain, name: plain[name] + 3 + graph._epoch_graphs.captures}
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    estate, _ = _eager_updates(eager, estate, ring, 3)
+    _assert_same_training(graph, gstate, eager, estate)
+
+
+def test_a_capture_that_fails_raises(cuda, monkeypatch):
+    """A host read inside the captured update (an injected ``.item()``)
+    makes ``train_epoch`` raise; nothing falls back to the eager loop, and
+    the warm-up is undone."""
+    (agent, _), (state, _), ring = _epoch_pair(cuda)
+    core = agent.core
+    real = core.predict_continuation
+
+    def probe(latent):
+        latent.sum().item()
+        return real(latent)
+
+    monkeypatch.setattr(core, "predict_continuation", probe)
+    before = [p.detach().clone() for p in core.parameters()]
+    with pytest.raises(RuntimeError):
+        agent.train_epoch(state, ring, 2)
+    torch.cuda.synchronize()
+    assert state.step == 0 and agent.total_steps == 0
+    assert all(o.count == 0 for o in state.optimizers.values())
+    assert all(torch.equal(p, b) for p, b in zip(core.parameters(), before))

@@ -5,7 +5,9 @@ their initial values), the inputs come from numpy seeds, and every draw is
 the JAX one, rebuilt from its key and handed to the port. JAX runs eagerly
 at these tiny sizes. float32 on both sides, only the summation order
 differs: ``MODEL_TOL`` (rtol 2e-4 / atol 2e-5) throughout, on values and
-on gradients.
+on gradients. The ELBO terms, the EFE and the MINE estimate are held on the
+JAX train step's own inputs, in tests/test_torch_train.py
+(``test_step_modules_match_jax``).
 """
 
 import math
@@ -50,8 +52,6 @@ from torch_parity import (
     B,
     D,
     H,
-    MINE_SAMPLES,
-    draws_from_jax,
     dropout_masks,
     fast_jit,
     jax_agent,
@@ -105,9 +105,6 @@ BIN_TIMES = np.array([0.01, 0.011, 0.5, 0.5, 0.999, 0.2, 0.2, 0.7], np.float32)
 RETURNS = {batch: (normal(18, batch), normal(19, batch), normal(20, batch),
                    (np.arange(batch) == batch // 2).astype(np.float32)) for batch in (8, 3)}
 OBS = normal(24, B, OBS_DIM)
-MINE_MEAN, MINE_LOGVAR = latents(22), np.full((B, D), -1.5, np.float32)
-MINE_RUNNING_MEAN = np.float32(0.4)
-TEMPERATURE = np.float32(1.3)
 KEYS = {name: jax.random.PRNGKey(seed) for seed, name in enumerate(
     ("decoder", "prior", "time", "act", "mlp"), start=40)}
 
@@ -119,15 +116,10 @@ def fe_score(z, time, o, lib):
 @pytest.fixture(scope="module")
 def refs(setup):
     """Every JAX reference of this file, in one compiled program: tracing
-    and compiling once is what keeps these tests cheap on the CPU. The ELBO,
-    EFE and MINE references take the keys of the JAX train step from its
-    step-0 state, so their draws are ``draws_from_jax``'s (a program
-    tests/test_torch_train.py compiles too, once a process)."""
+    and compiling once is what keeps these tests cheap on the CPU. (The
+    ELBO, EFE and MINE modules are held on the JAX train step's own inputs,
+    by the program tests/test_torch_train.py compiles.)"""
     jcore, params, _ = setup
-    cfg = jcore.config
-    jstate = jax_train_state(cfg)
-    _, _, elbo_key, efe_key, _, mine_key, _ = jax.random.split(jstate.rng, 7)
-    draws = draws_from_jax(jax_agent(cfg), jstate, B)
     rng = np.random.default_rng(3)
     stacked = jax.tree_util.tree_map(
         lambda x: np.stack([x + 0.1 * rng.standard_normal(x.shape).astype(np.float32)
@@ -172,16 +164,6 @@ def refs(setup):
                                   for e in (False, True)] for batch, r in RETURNS.items()}
         out["ema"] = {rm: jax.value_and_grad(lambda x, rm=rm: jepi.ema_loss(x, np.float32(rm)),
                                              has_aux=True)(normal(21, 40)) for rm in (0.0, 0.7)}
-        out["mine"] = dict(result=jepi.estimate_epistemic_value(
-            jcore.epistemic_estimator, p["epistemic"],
-            lambda z: jcore.decode_observation(p, z, train=False), MINE_MEAN, MINE_LOGVAR,
-            mine_key, MINE_RUNNING_MEAN, num_samples=MINE_SAMPLES, train=True,
-        ))
-        terms = jcore.elbo_terms(p, elbo_key, OBS, normal(26, B), latents(25),
-                                 jstate.time_importance, train=True)
-        out["elbo"] = dict(terms=terms, value=jcore.elbo_value(terms))
-        efe, info = jcore.compute_expected_free_energy(p, latents(29), efe_key, TEMPERATURE)
-        out["efe"] = dict(efe=efe, info=info)
         out["belief"] = jcore.generate_beliefs(p, KEYS["act"], OBS, deterministic=True)
         out["start"] = jax.random.normal(jax.random.split(KEYS["act"])[0], (B, D))
         out["mish"] = jcommon.mish(OBS)
@@ -196,7 +178,7 @@ def refs(setup):
                                                               info["accuracy"]))
         return out
 
-    return stacked, jax.tree_util.tree_map(np.asarray, reference(params, stacked)), draws
+    return stacked, jax.tree_util.tree_map(np.asarray, reference(params, stacked))
 
 
 @pytest.mark.parametrize("head", ["value", "dynamics", "reward", "continuation"])
@@ -288,48 +270,6 @@ def test_ema_logmeanexp_matches_jax(refs, running_mean):
     close(got, value)
     close(got_rm, new_rm)
     close(xt.grad, grad)
-
-
-def test_mine_estimate_matches_jax(setup, refs):
-    """``estimate_epistemic_value`` in training on the JAX draws: the MI
-    bound, its clamped value, the running mean and the metrics. (Its
-    gradients are held in the whole train step, tests/test_torch_train.py.)"""
-    tcore = setup[2]
-    res = refs[1]["mine"]["result"]
-    with torch.no_grad():
-        got = tepi.estimate_epistemic_value(
-            tcore.epistemic_estimator, lambda z: tcore.decode_observation(z), t(MINE_MEAN),
-            t(MINE_LOGVAR), refs[2].mine, torch.tensor(MINE_RUNNING_MEAN),
-        )
-    close(got.mi_lower_bound, res.mi_lower_bound)
-    close(got.value, res.value)
-    close(got.running_mean, res.running_mean)
-    for name, value in res.metrics.items():
-        close(got.metrics[name], value, err_msg=name)
-
-
-def test_elbo_terms_match_jax(setup, refs):
-    """Every ELBO term on the JAX draws, the gradient penalty (a gradient of
-    the score network inside the loss) included. (The gradients of the
-    losses, a gradient of a gradient, are held in the whole train step.)"""
-    tcore, ref = setup[2], refs[1]["elbo"]
-    got = tcore.elbo_terms(t(OBS), t(normal(26, B)), t(latents(25)), refs[2].elbo, train=True)
-    for name, value in ref["terms"].items():
-        close(got[name], value, err_msg=name)
-    close(tcore.elbo_value(got), ref["value"])
-
-
-def test_efe_matches_jax(setup, refs):
-    """The EFE over imagined rollouts on the JAX draws and its terms. (Its
-    gradient into the policy is held in the whole train step.)"""
-    tcore, ref = setup[2], refs[1]["efe"]
-    with torch.no_grad():
-        got, got_info = tcore.compute_expected_free_energy(
-            t(latents(29)), torch.tensor(TEMPERATURE), refs[2].efe
-        )
-    close(got, ref["efe"])
-    for name, value in ref["info"].items():
-        close(got_info[name], value, err_msg=name)
 
 
 def test_reconstruction_error_matches_jax(setup, refs):
