@@ -180,20 +180,26 @@ def make_optimizers(
 class AgentTrainState:
     """All training state but the parameters (which the core's modules
     hold): the host step count, the optimizers with their moments, the EMA
-    shadow of the score network, the time-importance weights, the MINE
-    running mean, the reward normaliser, the preference temperature and the
-    generator every draw of a step comes from. The imagined-lambda critic,
-    its return scale and entropy coefficient and the EMA policy come with
-    their slice."""
+    shadow of the score network, the slow critic (the value network's EMA,
+    the imagined actor's bootstrap), the imagined returns' scale and the log
+    entropy coefficient, the time-importance weights, the MINE running mean,
+    the reward normaliser, the preference temperature, the generator every
+    draw of a step comes from, and the EMA policy (present only with the
+    policy anchor or ``act_with_policy_ema``). The EMAs are dicts of tensors
+    by parameter name, updated in place."""
 
     step: int
     optimizers: Dict[str, PartitionOptimizer]
     ema_score: Dict[str, torch.Tensor]
+    target_value: Dict[str, torch.Tensor]
+    return_scale: torch.Tensor  # 0-d, starts at 1
+    log_alpha: torch.Tensor  # 0-d, starts at log imagined_entropy_scale
     time_importance: torch.Tensor  # (100,)
     epistemic_running_mean: torch.Tensor  # 0-d
     reward_norm: RewardNormState
     preference_temperature: torch.Tensor  # 0-d
     rng: torch.Generator
+    ema_policy: Optional[Dict[str, torch.Tensor]] = None
 
 
 class BaseAgent:
@@ -226,6 +232,8 @@ class BaseAgent:
         self.exploration_noise = training_config.exploration_noise
         self.total_steps = 0
         self._epoch_graphs = None  # agents/graphs.py's EpochGraphs, made on the first CUDA epoch
+        # attribute -> (the EMA's storage pointers, the module acting with it)
+        self._shadows: Dict[str, Tuple[tuple, nn.Module]] = {}
 
     def load_jax_params(self, params: Mapping) -> Tuple[str, ...]:
         """Load the JAX agent's parameters (``params`` as a nested dict of
@@ -235,20 +243,30 @@ class BaseAgent:
         return load_jax_params(self.core, params)
 
     def new_train_state(self, seed: int) -> AgentTrainState:
-        """A train state over the current parameters: fresh optimizers
-        (zero moments), the EMA shadow a copy of the score network, uniform
-        time importance, and ``rng`` a generator on the agent's device
-        seeded with ``seed``."""
-        dev = self.device
+        """A train state over the current parameters, as the JAX
+        ``init_train_state`` makes it: fresh optimizers (zero moments), the
+        score EMA and the slow critic copies of their networks, return scale
+        1, log_alpha log ``imagined_entropy_scale``, uniform time
+        importance, the EMA policy a copy of the policy where the anchor or
+        ``act_with_policy_ema`` needs it, and ``rng`` a generator on the
+        agent's device seeded with ``seed``."""
+        cfg, dev = self.config, self.device
+        ema_policy = None
+        if cfg.policy_anchor_weight > 0 or cfg.act_with_policy_ema:
+            ema_policy = init_ema(self.core.policy_network)
         return AgentTrainState(
             step=0,
-            optimizers=make_optimizers(self.config, self.PARTITIONS, self.core),
+            optimizers=make_optimizers(cfg, self.PARTITIONS, self.core),
             ema_score=init_ema(self.core.score_network),
+            target_value=init_ema(self.core.value_network),
+            return_scale=torch.ones((), device=dev),
+            log_alpha=torch.log(torch.tensor(cfg.imagined_entropy_scale, device=dev)),
             time_importance=init_time_importance(dev),
             epistemic_running_mean=torch.zeros((), device=dev),
             reward_norm=RewardNormState.create(dev),
-            preference_temperature=torch.tensor(self.config.preference_temperature, device=dev),
+            preference_temperature=torch.tensor(cfg.preference_temperature, device=dev),
             rng=torch.Generator(device=dev).manual_seed(seed),
+            ema_policy=ema_policy,
         )
 
     def init_train_state(self, seed: int) -> AgentTrainState:
@@ -278,8 +296,8 @@ class BaseAgent:
         for the card. On a CUDA device each update replays a captured CUDA
         graph (``agents/graphs.py``; a capture that fails raises), and the
         cached weight packs are dropped at the end, since replays move the
-        weights without their version counters. On the CPU the loop runs
-        eagerly."""
+        weights without their version counters (the EMA modules' acting packs
+        too). On the CPU the loop runs eagerly."""
         batch_size = self.config.batch_size
         graphs = None
         if self.device.type == "cuda":
@@ -308,5 +326,7 @@ class BaseAgent:
         finally:
             if graphs is not None:
                 forget_packed_trunks(self.core.score_network)
+                for _, module in self._shadows.values():
+                    forget_packed_trunks(module)
         self.total_steps += num_updates
         return state, {k: v / num_updates for k, v in total.items()}

@@ -7,10 +7,12 @@ the copy of every state field it reassigns back into its own tensor) is
 captured once and replayed per update, so an update costs one graph launch
 and its draws instead of some 5,000 kernel launches from Python.
 
-- Two graphs: an update that runs the MINE update and one that does not,
-  chosen per update by the host step count (``state.step %
-  epistemic_update_every``), as JAX's ``lax.cond`` chooses. Each is
-  captured when its first update comes, and both share one memory pool.
+- One graph per kind of update, the kind being what ``update_kind``
+  decides on the host step count: whether the MINE update runs (``step %
+  epistemic_update_every``, as JAX's ``lax.cond`` chooses) and whether the
+  policy anchor is past its warm-up (JAX multiplies it by a gate traced on
+  the step). Each is captured when its first update comes, and all share
+  one memory pool.
   Parameters, optimizer moments, the train state's tensors, the ring and
   the metric sums live outside it.
 - The draws of each update are made outside the graph from ``state.rng``
@@ -54,15 +56,18 @@ def _tensors(tree) -> List[torch.Tensor]:
 def _state_tensors(agent, state) -> List[torch.Tensor]:
     """Every tensor an update reads or writes in place, but the ring's and
     the draws': the parameters, the optimizers' moments and counts, the
-    score EMA, and the train state's reassigned fields."""
+    EMAs (score, slow critic, policy), the return scale and log_alpha, and
+    the train state's reassigned fields."""
     out = list(agent.core.parameters())
     for opt in state.optimizers.values():
         for p in opt.params:
             out += [v for v in opt.adamw.state[p].values() if isinstance(v, torch.Tensor)]
-    out += list(state.ema_score.values())
+    for ema in (state.ema_score, state.target_value, state.ema_policy or {}):
+        out += list(ema.values())
     norm = state.reward_norm
-    return out + [state.time_importance, state.epistemic_running_mean, norm.mean, norm.var,
-                  norm.count, state.preference_temperature]
+    return out + [state.return_scale, state.log_alpha, state.time_importance,
+                  state.epistemic_running_mean, norm.mean, norm.var, norm.count,
+                  state.preference_temperature]
 
 
 @torch.no_grad()
@@ -90,7 +95,7 @@ class EpochGraphs:
     def __init__(self, agent):
         self.agent = agent
         self.key = None
-        self.captured: Dict[bool, _Captured] = {}
+        self.captured: Dict[tuple, _Captured] = {}  # by update_kind
         self.sums: Optional[Dict[str, torch.Tensor]] = None
         self.pool = None
         self.captures = 0  # graphs captured over the agent's life
@@ -117,12 +122,11 @@ class EpochGraphs:
             self.pool = torch.cuda.graph_pool_handle()
         if self.sums is not None:
             torch._foreach_zero_(list(self.sums.values()))
-        every = agent.config.epistemic_update_every
         for _ in range(updates):
-            mine = state.step % every == 0
-            if mine not in self.captured:
-                self.captured[mine] = self._capture(state, replay_state, batch_size)
-            run = self.captured[mine]
+            kind = agent.update_kind(state.step)
+            if kind not in self.captured:
+                self.captured[kind] = self._capture(state, replay_state, batch_size)
+            run = self.captured[kind]
             draw_indices(replay_state, batch_size, state.rng, out=run.indices)
             torch._foreach_copy_(run.draws, _tensors(agent.draw_train(state, batch_size)))
             run.graph.replay()

@@ -34,7 +34,7 @@ PORTED_GROUPS = GROUP_MODULES
 # The groups acting needs; ``load_jax_params`` requires them by default.
 ACTING_GROUPS = ("score", "policy", "decoder")
 # Groups the JAX agent holds that later ports will load.
-UNPORTED_GROUPS = ("posterior", "feature_decoder")
+UNPORTED_GROUPS = ("feature_decoder",)
 
 _MODULE_RENAMES = (
     (re.compile(r"^block_(\d+)$"), r"blocks.\1"),
@@ -132,10 +132,13 @@ def train_state_from_jax(agent, jax_state, seed: int = 0):
     (``jax.tree_util.tree_map(np.asarray, state)``). Loads every ported
     parameter group into the agent's core; the optimizers start at zero
     moments, as the JAX state's do at step 0; ``time_importance``,
-    ``reward_norm``, ``epistemic_running_mean``, ``preference_temperature``
-    and the score EMA are carried over; ``rng`` is a new generator seeded
-    with ``seed``. Raises for a state past step 0, whose moments would be
-    lost."""
+    ``reward_norm``, ``epistemic_running_mean``, ``preference_temperature``,
+    ``return_scale``, ``log_alpha`` and the EMAs (the score EMA, the slow
+    critic ``target_value`` and, where the state holds one, the EMA policy)
+    are carried over; ``rng`` is a new generator seeded with ``seed``.
+    Raises for a state past step 0, whose moments would be lost, and where
+    the JAX state holds an EMA policy and the port's does not, or the other
+    way round."""
     if int(np.asarray(jax_state.step)) != 0:
         raise ValueError("only a step-0 JAX train state maps over: optimizer moments are not carried")
     load_jax_params(agent.core, jax_state.params, required=tuple(PORTED_GROUPS))
@@ -145,10 +148,20 @@ def train_state_from_jax(agent, jax_state, seed: int = 0):
     def tensor(x):
         return torch.tensor(np.asarray(x, np.float32), device=dev)
 
-    ema = flax_to_torch(jax_state.ema_score)
-    if set(ema) != set(state.ema_score):
-        raise KeyError("the JAX score EMA does not map onto the score network's parameters")
-    state.ema_score = {name: tensor(ema[name]) for name in state.ema_score}
+    def ema(tree, group: str, like: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        arrays = flax_to_torch(tree)
+        if set(arrays) != set(like):
+            raise KeyError(f"the JAX {group} EMA does not map onto the network's parameters")
+        return {name: tensor(arrays[name]) for name in like}
+
+    state.ema_score = ema(jax_state.ema_score, "score", state.ema_score)
+    state.target_value = ema(jax_state.target_value, "value", state.target_value)
+    if (jax_state.ema_policy is None) != (state.ema_policy is None):
+        raise ValueError("the JAX state and the port's config disagree on the EMA policy")
+    if state.ema_policy is not None:
+        state.ema_policy = ema(jax_state.ema_policy, "policy", state.ema_policy)
+    state.return_scale = tensor(jax_state.return_scale)
+    state.log_alpha = tensor(jax_state.log_alpha)
     state.time_importance = tensor(jax_state.time_importance)
     norm = jax_state.reward_norm
     state.reward_norm = type(state.reward_norm)(tensor(norm.mean), tensor(norm.var),

@@ -3,14 +3,19 @@ terms of the training losses.
 
 Counterpart of ``active_inference_diffusion_tpu/core/active_inference.py``
 (``__init__`` :64-198, ``init_params`` :204-264, the model applications
-:270-425, ``generate_beliefs`` :431-570, ``compute_expected_free_energy``
-:576-726, ``elbo_terms`` and the loss assemblies :891-1073,
+and the posterior :270-425, ``generate_beliefs`` :431-570,
+``compute_expected_free_energy`` :576-726, ``imagined_lambda_objective``
+:733-889, ``elbo_terms`` and the loss assemblies :891-1073,
 ``refine_beliefs`` :1080-1121, ``act`` :1137-1208). The modules are
 ``nn.Module``s on an explicit device, CUDA unless the caller asks for
 another. Every random draw is explicit: a call either takes a
 ``torch.Generator`` and draws, or takes the record of its draws
 (``ActStart``, ``ElboDraws``, ``EfeDraws``, ``MineDraws``), so tests can
 hand both packages the same numbers.
+
+With ``act_from_posterior`` acting takes its belief from the amortised
+posterior q(z | o) (one encoder pass) instead of the sweep; no sweep kernel
+runs then.
 
 The belief sweep goes through ``ops.denoise``: the variant
 ``tpu.denoiser_kernel`` selects ("v2", else v1) with the matmul weights in
@@ -27,10 +32,13 @@ not read here. Branches this port does not have yet raise
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+import contextlib
+import math
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..configs.config import ActiveInferenceConfig
 from ..models.decoders import (
@@ -41,6 +49,7 @@ from ..models.decoders import (
     reward_log_prob,
 )
 from ..models.dynamics import LatentDynamicsModel
+from ..models.encoders import LatentPosteriorEncoder
 from ..models.policy import DiffusionConditionedPolicy, PolicyDist, sample_action
 from ..models.score_network import OBS_DROPOUT, LatentScoreNetwork
 from ..models.value import ValueNetwork
@@ -86,6 +95,7 @@ GROUP_MODULES = {
     "reward": "reward_predictor",
     "continuation": "continuation_predictor",
     "epistemic": "epistemic_estimator",
+    "posterior": "posterior_encoder",
 }
 
 
@@ -111,7 +121,9 @@ class BeliefInfo(NamedTuple):
 class ActStart(NamedTuple):
     """The random draws of one act call that come before any model runs."""
 
-    noise: torch.Tensor  # (B, D) N(0, I): the sweep's start, or a warm start's forward noise
+    # (B, D) N(0, I): the sweep's start, a warm start's forward noise, or,
+    # with act_from_posterior, the posterior sample's eps
+    noise: torch.Tensor
     seed: torch.Tensor  # 0-d int64: the seed of the in-sweep noise
     refine_noise: Optional[torch.Tensor]  # (refine_steps, B, D) N(0, I); None without refinement
 
@@ -131,16 +143,23 @@ class ElboDraws(NamedTuple):
 
 
 class EfeDraws(NamedTuple):
-    """The draws of one ``compute_expected_free_energy`` call."""
+    """The draws of one imagined rollout: a ``compute_expected_free_energy``
+    or an ``imagined_lambda_objective`` call."""
 
     policy_noise: torch.Tensor  # (horizon, T B, A) N(0, I) of the policy samples
     dynamics_noise: torch.Tensor  # (horizon, T B, D) N(0, I) of the imagined transitions
+    # (horizon, T B) int64: the ensemble member of each imagined row and step;
+    # None for one dynamics network
+    members: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "EfeDraws":
+        return tree_to(self, device)
 
 
 class DiffusionActiveInference(nn.Module):
     """The models of one agent (score network, diffusion parameters, policy,
     value, dynamics, decoder, reward and continuation heads, the epistemic
-    estimator) and the schedule."""
+    estimator, the posterior encoder) and the schedule."""
 
     def __init__(
         self,
@@ -153,6 +172,14 @@ class DiffusionActiveInference(nn.Module):
         super().__init__()
         if config.pixel_observation:
             raise NotImplementedError("pixel observations are not ported yet (ROADMAP A11)")
+        if config.act_from_posterior and not config.posterior_beliefs:
+            raise ValueError("act_from_posterior requires posterior_beliefs: without it the "
+                             "posterior encoder gets no gradient")
+        if config.posterior_beliefs and config.ground_beliefs:
+            raise ValueError("posterior_beliefs and ground_beliefs are exclusive belief sources")
+        if config.auto_entropy and not config.imagined_value_targets:
+            raise ValueError("auto_entropy tunes the imagined actor's entropy coefficient and "
+                             "needs imagined_value_targets")
         self.observation_dim = observation_dim
         self.action_dim = action_dim
         self.latent_dim = latent_dim
@@ -192,6 +219,7 @@ class DiffusionActiveInference(nn.Module):
             observation_dim, latent_dim, ntk_samples=4,
             aggregator_output_dim=config.spatial_aggregator_output_dim,
         )
+        self.posterior_encoder = LatentPosteriorEncoder(observation_dim, latent_dim, hidden_dim=h)
         # The kernels take the width, on a card: decided here, once.
         self.sweep_uses_kernel = self.device.type == "cuda" and kernel_takes(
             latent_dim, h, config.score_num_layers, self.sweep_dtype
@@ -214,13 +242,35 @@ class DiffusionActiveInference(nn.Module):
         for attr in GROUP_MODULES.values():
             getattr(self, attr).reset_parameters(generator)
 
+    @contextlib.contextmanager
+    def swapped(self, modules: Dict[str, nn.Module]) -> Iterator["DiffusionActiveInference"]:
+        """The core with the named modules (``score_network``,
+        ``policy_network``, ...) replaced for the duration of the block, as
+        the JAX agent acts with substituted parameter groups."""
+        saved = {name: self._modules[name] for name in modules}
+        self._modules.update(modules)
+        try:
+            yield self
+        finally:
+            self._modules.update(saved)
+
     # -- model applications ----------------------------------------------
 
-    def apply_policy(self, z: torch.Tensor) -> PolicyDist:
-        return self.policy_network(z)
+    def apply_policy(self, z: torch.Tensor,
+                     params: Optional[Dict[str, torch.Tensor]] = None) -> PolicyDist:
+        """The policy head; with ``params`` (a dict of its parameters by name,
+        such as the EMA policy) in place of its own."""
+        if params is None:
+            return self.policy_network(z)
+        return functional_call(self.policy_network, params, (z,))
 
-    def apply_value(self, z: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        return self.value_network(z, t)[..., 0]
+    def apply_value(self, z: torch.Tensor, t: torch.Tensor,
+                    params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """V(z, t); with ``params`` (such as the slow critic) in place of
+        the value network's own."""
+        if params is None:
+            return self.value_network(z, t)[..., 0]
+        return functional_call(self.value_network, params, (z, t))[..., 0]
 
     def predict_next_latent_members(self, latent: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
         """(K, B, D) next-latent means of all ensemble members."""
@@ -236,17 +286,39 @@ class DiffusionActiveInference(nn.Module):
         return next_mean, torch.full_like(next_mean, self.config.dynamics_logvar)
 
     def imagine_next(
-        self, latent: torch.Tensor, action: torch.Tensor
+        self, latent: torch.Tensor, action: torch.Tensor, members: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """One imagination step: the next-latent mean, its fixed log-variance
-        and the model disagreement (0 for one network)."""
-        if self.config.num_dynamics_ensemble > 1:
-            raise NotImplementedError(
-                "imagination over a dynamics ensemble (a member per sample) is not ported "
-                "yet (ROADMAP A4)"
-            )
-        next_mean, next_logvar = self.predict_next_latent(latent, action)
-        return next_mean, next_logvar, torch.zeros_like(next_mean[:, 0])
+        and the model disagreement per row. With an ensemble, row i takes
+        the mean of member ``members[i]`` (a uniform draw in [0, K)) and the
+        disagreement is the members' standard deviation (ddof 0) averaged
+        over latent dims; one network gives its mean and 0."""
+        means = self.predict_next_latent_members(latent, action)
+        if means.shape[0] > 1:
+            if members is None:
+                raise ValueError("imagination over an ensemble needs the member draws")
+            rows = torch.arange(latent.shape[0], device=latent.device)
+            next_mean = means[members, rows]
+            disagreement = means.std(dim=0, correction=0).mean(dim=-1)
+        else:
+            next_mean = means[0]
+            disagreement = torch.zeros_like(next_mean[:, 0])
+        return next_mean, torch.full_like(next_mean, self.config.dynamics_logvar), disagreement
+
+    def _imagined_transition(
+        self, z: torch.Tensor, action: torch.Tensor, draws: "EfeDraws", i: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Step ``i`` of an imagined rollout: the next latent (the mean with
+        ``imagine_deterministic``, else a sample at the fixed variance) and
+        its guarded predicted reward."""
+        members = None if draws.members is None else draws.members[i]
+        next_mean, next_logvar, disagreement = self.imagine_next(z, action, members)
+        if self.config.imagine_deterministic:
+            next_z = next_mean
+        else:
+            next_z = next_mean + draws.dynamics_noise[i] * torch.exp(0.5 * next_logvar)
+        reward_mean, reward_std = self.predict_reward(next_z)
+        return next_z, self._guard_imagined_reward(reward_mean, reward_std, disagreement)
 
     def _guard_imagined_reward(
         self, reward_mean: torch.Tensor, reward_std: torch.Tensor, disagreement: torch.Tensor
@@ -276,6 +348,38 @@ class DiffusionActiveInference(nn.Module):
     ) -> torch.Tensor:
         """Decode a latent to observation space (the state branch)."""
         return self.observation_decoder(latent, train=train, dropout_masks=dropout_masks)
+
+    def apply_posterior(self, observation: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The amortised posterior q(z | o): (mu, logstd)."""
+        return self.posterior_encoder(observation)
+
+    def sample_posterior(self, observation: torch.Tensor,
+                         eps: Optional[torch.Tensor]) -> torch.Tensor:
+        """The reparameterised draw mu + exp(logstd) eps; mu where ``eps`` is
+        None (deterministic)."""
+        mu, logstd = self.apply_posterior(observation)
+        return mu if eps is None else mu + eps * torch.exp(logstd)
+
+    def posterior_eps(self, noise: torch.Tensor) -> Optional[torch.Tensor]:
+        """The eps of a posterior belief from a start's noise: None (the
+        mean) with ``deterministic_beliefs``."""
+        return None if self.config.deterministic_beliefs else noise
+
+    def posterior_beliefs(self, observation: torch.Tensor, noise: torch.Tensor,
+                          compute_reconstruction: bool = False) -> BeliefInfo:
+        """The act path's belief with ``act_from_posterior``: a posterior
+        sample (``posterior_eps`` of ``noise``), its batch mean and standard
+        deviation (ddof 0, as the JAX act takes it) and, with
+        ``compute_reconstruction``, the decoded sample's mean squared error
+        against the observation."""
+        latent = self.sample_posterior(observation, self.posterior_eps(noise))
+        if compute_reconstruction:
+            reconstruction_error = torch.mean((self.decode_observation(latent) - observation) ** 2)
+        else:
+            reconstruction_error = torch.zeros((), device=self.device)
+        return BeliefInfo(latent=latent, latent_mean=latent.mean(dim=0),
+                          latent_std=latent.std(dim=0, correction=0),
+                          reconstruction_error=reconstruction_error, trajectory=None)
 
     # -- belief generation --------------------------------------------------
 
@@ -377,14 +481,25 @@ class DiffusionActiveInference(nn.Module):
     # -- expected free energy ----------------------------------------------
 
     def draw_efe(self, batch_size: int, generator: torch.Generator) -> EfeDraws:
+        """The draws of one imagined rollout from ``batch_size`` latents, in
+        this order: the policy's noise, the transitions' noise and, with an
+        ensemble, each row's member per step."""
         cfg = self.config
         n = cfg.num_efe_trajectories * batch_size
-        return EfeDraws(
-            torch.randn((cfg.efe_horizon, n, self.action_dim), generator=generator,
-                        device=self.device),
-            torch.randn((cfg.efe_horizon, n, self.latent_dim), generator=generator,
-                        device=self.device),
-        )
+        dev = self.device
+        policy = torch.randn((cfg.efe_horizon, n, self.action_dim), generator=generator, device=dev)
+        dynamics = torch.randn((cfg.efe_horizon, n, self.latent_dim), generator=generator,
+                               device=dev)
+        members = None
+        if cfg.num_dynamics_ensemble > 1:
+            members = torch.randint(0, cfg.num_dynamics_ensemble, (cfg.efe_horizon, n),
+                                    generator=generator, device=dev)
+        return EfeDraws(policy, dynamics, members)
+
+    def _check_rollout_draws(self, draws: EfeDraws, n: int) -> None:
+        if draws.policy_noise.shape[:2] != (self.config.efe_horizon, n):
+            raise ValueError(f"rollout draws of shape {tuple(draws.policy_noise.shape)} do not "
+                             f"fit horizon {self.config.efe_horizon} x {n} imagined rows")
 
     def compute_expected_free_energy(
         self,
@@ -411,9 +526,7 @@ class DiffusionActiveInference(nn.Module):
         horizon = cfg.efe_horizon
         batch_size = latent.shape[0]
         n = cfg.num_efe_trajectories * batch_size
-        if draws.policy_noise.shape[:2] != (horizon, n):
-            raise ValueError(f"EFE draws of shape {tuple(draws.policy_noise.shape)} do not fit "
-                             f"horizon {horizon} x {n} imagined rows")
+        self._check_rollout_draws(draws, n)
         prag_w = cfg.pragmatic_weight
         prag_scale = cfg.semantics.pragmatic_sign * (
             prag_w if cfg.semantics.double_pragmatic_weight else 1.0
@@ -424,13 +537,7 @@ class DiffusionActiveInference(nn.Module):
         for i in range(horizon):
             dist = self.apply_policy(z)
             action, _ = sample_action(dist, draws.policy_noise[i], squash=self.policy_squash)
-            next_mean, next_logvar, disagreement = self.imagine_next(z, action)
-            if cfg.imagine_deterministic:
-                next_z = next_mean
-            else:
-                next_z = next_mean + draws.dynamics_noise[i] * torch.exp(0.5 * next_logvar)
-            reward_mean, reward_std = self.predict_reward(next_z)
-            reward_mean = self._guard_imagined_reward(reward_mean, reward_std, disagreement)
+            next_z, reward_mean = self._imagined_transition(z, action, draws, i)
             t_batch = torch.full((n,), float(i), dtype=z.dtype, device=z.device)
             pragmatic = prag_w * (reward_mean / preference_temperature)
             pragmatic = pragmatic + cfg.efe_value_weight * self.apply_value(next_z, t_batch)
@@ -447,6 +554,92 @@ class DiffusionActiveInference(nn.Module):
             "efe/consistency_mean": torch.stack(cons_means).mean(),
         }
         return efe, info
+
+    # -- the imagined lambda objective ----------------------------------------
+
+    def imagined_lambda_objective(
+        self,
+        latent: torch.Tensor,
+        draws: EfeDraws,
+        preference_temperature: torch.Tensor,
+        value_params: Optional[Dict[str, torch.Tensor]] = None,
+        return_scale: Optional[torch.Tensor] = None,
+        entropy_scale: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+               Dict[str, torch.Tensor]]:
+        """The Dreamer-style actor loss over an imagined rollout: the
+        ``num_efe_trajectories`` copies of the batch rolled ``efe_horizon``
+        steps through the policy and ``imagine_next``; guarded predicted
+        rewards over the preference temperature; the discount weighted by
+        the stop-gradient continuation probability when
+        ``predict_continuation`` is set; the bootstrap V(z_{t+1}, t+1) from
+        ``value_params`` (the slow critic) or the live critic; lambda-returns
+        taken backward. The actor loss is -mean(returns / norm) - entropy
+        scale x mean entropy, with norm = max(1, return_scale) under
+        ``imagined_return_norm`` and the entropy scale ``entropy_scale``
+        (exp(log_alpha) with ``auto_entropy``) or
+        ``imagined_entropy_scale``, both without gradient. Returns the loss,
+        the critic's stop-gradient (states (H, N, D), times (H, N), returns
+        (H, N)), and the ``imagined/*`` metrics, among them the 5th-95th
+        percentile range of the returns."""
+        cfg = self.config
+        horizon, num_traj = cfg.efe_horizon, cfg.num_efe_trajectories
+        n = num_traj * latent.shape[0]
+        self._check_rollout_draws(draws, n)
+        z = latent.repeat(num_traj, 1)
+        zs, rewards, entropies, conts = [], [], [], []
+        for i in range(horizon):
+            dist = self.apply_policy(z)
+            action, _ = sample_action(dist, draws.policy_noise[i], squash=self.policy_squash)
+            next_z, reward = self._imagined_transition(z, action, draws, i)
+            if cfg.predict_continuation:
+                cont = torch.sigmoid(self.predict_continuation(next_z)).detach()
+            else:
+                cont = torch.ones_like(reward)
+            zs.append(z)
+            rewards.append(reward)
+            entropies.append(dist.entropy())
+            conts.append(cont)
+            z = next_z
+        zs_all = torch.stack(zs)  # (H, N, D): z_0 .. z_{H-1}
+        zs_next = torch.cat([zs_all[1:], z[None]], dim=0)
+        t_idx = torch.arange(horizon, dtype=latent.dtype, device=latent.device)
+        t_next = (t_idx + 1.0)[:, None].expand(horizon, n)
+        values_next = self.apply_value(
+            zs_next.reshape(horizon * n, -1), t_next.reshape(horizon * n), params=value_params
+        ).reshape(horizon, n)
+        rewards_all = torch.stack(rewards) / preference_temperature
+        gamma, lam = cfg.discount_factor, cfg.lambda_return
+        ret = values_next[-1]
+        returns = []
+        for i in reversed(range(horizon)):
+            ret = rewards_all[i] + gamma * conts[i] * ((1.0 - lam) * values_next[i] + lam * ret)
+            returns.append(ret)
+        lambda_returns = torch.stack(returns[::-1])  # (H, N)
+        targets = lambda_returns.detach()
+        return_range = _percentile(targets, 95.0) - _percentile(targets, 5.0)
+        if cfg.imagined_return_norm and return_scale is not None:
+            norm = torch.clamp(return_scale.detach(), min=1.0)
+        else:
+            norm = torch.ones((), dtype=latent.dtype, device=latent.device)
+        if entropy_scale is not None:
+            ent_scale = entropy_scale.detach()
+        else:
+            ent_scale = torch.full((), cfg.imagined_entropy_scale, dtype=latent.dtype,
+                                   device=latent.device)
+        entropy = torch.stack(entropies)
+        actor_loss = -torch.mean(lambda_returns / norm) - ent_scale * torch.mean(entropy)
+        info = {
+            "imagined/lambda_return_mean": targets.mean(),
+            "imagined/reward_mean": rewards_all.detach().mean(),
+            "imagined/entropy_mean": entropy.detach().mean(),
+            "imagined/return_range": return_range,
+            "imagined/return_norm": norm,
+            "imagined/entropy_scale": ent_scale,
+            "imagined/continuation_mean": torch.stack(conts).mean(),
+        }
+        imagined_t = t_idx[:, None].expand(horizon, n)
+        return actor_loss, (zs_all.detach(), imagined_t, targets), info
 
     # -- the diffusion ELBO -------------------------------------------------
 
@@ -605,8 +798,6 @@ class DiffusionActiveInference(nn.Module):
     def check_act_supported(self) -> None:
         """Raise for the acting branches this port does not have yet."""
         cfg = self.config
-        if cfg.act_from_posterior:
-            raise NotImplementedError("act_from_posterior is not ported yet (ROADMAP A4a)")
         if cfg.plan_candidates > 0:
             raise NotImplementedError(
                 "act_planned (plan_candidates > 0) is not ported yet (ROADMAP A12)"
@@ -626,14 +817,18 @@ class DiffusionActiveInference(nn.Module):
         z_init: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """The act path's belief: the sweep (deterministic when
-        ``deterministic_beliefs``), then, with ``use_belief_dynamics``, the
-        Fokker-Planck refinement."""
+        ``deterministic_beliefs``), or with ``act_from_posterior`` a
+        posterior sample (``z_init`` then plays no part), then, with
+        ``use_belief_dynamics``, the Fokker-Planck refinement."""
         self.check_act_supported()
-        latent = self.beliefs_from_start(
-            observation, start.noise, start.seed, num_steps,
-            deterministic=self.config.deterministic_beliefs, z_init=z_init,
-            compute_reconstruction=False,
-        ).latent
+        if self.config.act_from_posterior:
+            latent = self.posterior_beliefs(observation, start.noise).latent
+        else:
+            latent = self.beliefs_from_start(
+                observation, start.noise, start.seed, num_steps,
+                deterministic=self.config.deterministic_beliefs, z_init=z_init,
+                compute_reconstruction=False,
+            ).latent
         return self._refined(latent, observation, start)
 
     @torch.no_grad()
@@ -676,10 +871,13 @@ class DiffusionActiveInference(nn.Module):
             latent = self.belief_latent(observation, start, num_steps)
             return self.policy_action(latent, generator, deterministic)
         self.check_act_supported()
-        belief = self.beliefs_from_start(
-            observation, start.noise, start.seed, num_steps,
-            deterministic=self.config.deterministic_beliefs,
-        )
+        if self.config.act_from_posterior:
+            belief = self.posterior_beliefs(observation, start.noise, compute_reconstruction=True)
+        else:
+            belief = self.beliefs_from_start(
+                observation, start.noise, start.seed, num_steps,
+                deterministic=self.config.deterministic_beliefs,
+            )
         latent = self._refined(belief.latent, observation, start)
         action, info = self.policy_action(latent, generator, deterministic)
         temperature = torch.tensor(self.config.preference_temperature, device=self.device)
@@ -705,3 +903,15 @@ class DiffusionActiveInference(nn.Module):
         start = self.draw_start(observation.shape[0], generator)
         efe = self.draw_efe(observation.shape[0], generator) if compute_efe_info else None
         return self.act_from_start(observation, start, generator, deterministic, num_steps, efe)
+
+
+def _percentile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """The ``q``-th percentile of all of ``x``, interpolated linearly
+    between the two nearest ranks as ``jnp.percentile`` and
+    ``torch.quantile`` take it. The ranks come from the shape alone, so a
+    CUDA graph captures it (no read of the data on the host)."""
+    ordered = x.flatten().sort().values
+    pos = q / 100.0 * (ordered.numel() - 1)
+    lo = int(math.floor(pos))
+    hi = min(lo + 1, ordered.numel() - 1)
+    return ordered[lo] + (pos - lo) * (ordered[hi] - ordered[lo])

@@ -1,6 +1,7 @@
 """Gaussian policy conditioned on diffusion latents.
 
-Counterpart of ``active_inference_diffusion_tpu/models/policy.py:21-140``.
+Counterpart of ``active_inference_diffusion_tpu/models/policy.py:21-140``
+(``gaussian_kl`` :48-62).
 Distributions are (mean, log_std) pairs with plain helper functions. The
 standard-normal noise of a sample is an explicit argument; the caller draws
 it from its own ``torch.Generator``. ``HierarchicalDiffusionPolicy`` is not
@@ -44,6 +45,16 @@ class PolicyDist(NamedTuple):
     def entropy(self) -> torch.Tensor:
         """Per-dimension entropy, summed over action dims."""
         return (0.5 * (1.0 + math.log(2 * math.pi)) + self.log_std).sum(dim=-1)
+
+
+def gaussian_kl(p: PolicyDist, q: PolicyDist) -> torch.Tensor:
+    """KL(p || q) of two diagonal Gaussians, summed over action dims -> (B,).
+    The policy anchor takes it on the pre-tanh distributions: tanh is a
+    fixed bijection, so the squashed policies' KL is the same."""
+    var_p = torch.exp(2.0 * p.log_std)
+    var_q = torch.exp(2.0 * q.log_std)
+    kl = q.log_std - p.log_std + (var_p + (p.mean - q.mean) ** 2) / (2.0 * var_q) - 0.5
+    return kl.sum(dim=-1)
 
 
 def tanh_squash_log_prob(log_prob: torch.Tensor, pre_tanh_action: torch.Tensor) -> torch.Tensor:

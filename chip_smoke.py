@@ -8,9 +8,11 @@ each against its plain PyTorch version, drives the state agent's acting
 paths (``DiffusionStateAgent.act`` and ``act_warm``) through every kernel
 and the flagship train update (``train_step``, and ``train_epoch`` over a
 device replay ring, each update a replayed CUDA graph) through the float32
-ones,
-runs the widths beyond the kernels' 48 MiB of trunk weights through the
-plain sweep on the card, and times them. Any failed phase raises, so the script exits non-zero;
+ones, runs the widths beyond the kernels' 48 MiB of trunk weights through
+the plain sweep on the card, drives the learning presets
+(``*_state_dreamer.yaml``: posterior beliefs, the imagined actor-critic,
+no sweep) through ``train_step``, ``train_epoch`` and ``act``, and times
+them. Any failed phase raises, so the script exits non-zero;
 without a CUDA device it exits non-zero before printing a result. It
 imports no JAX and nothing of the JAX package.
 
@@ -69,6 +71,23 @@ Phases:
    epoch equal to the eager twin's; for v1 also ten replays under
    torch.profiler (one sweep kernel and one graph launch each in the
    trace) and an epoch of 300 updates in chunks of 150 and 150.
+   g. the learning presets (``dreamer_phase``), the three
+   ``*_state_dreamer.yaml`` loaded from their files at their published
+   widths (batch 128, latent 32, hidden 128, 6 blocks, 5 dynamics members,
+   5 x 10 imagined trajectories) and the environments' dimensions, Flax
+   initialisers from a seed and the score network ``randomize``d: per
+   preset one update with explicit draws against the CPU twin (the train
+   check, the slow critic, return scale, log_alpha and EMA policy among the
+   state's fields); steps 0-9 as graph replays against the eager loop; for
+   Hopper also a copy with ``policy_anchor_warmup_steps=5``, ten updates in
+   one ``train_epoch`` call, whose four kinds of captured update show the
+   anchor's gate opening inside it; posterior acting with the trained state
+   at batch 16 and 256 against the CPU twin (``act`` eval and collect,
+   ``act_warm``, ``act`` with ``compute_efe_info``); no sweep launched in
+   any of it. Then C4: the HalfCheetah preset with
+   posterior acting off and ``use_ema_for_act`` on acts with the state's
+   score EMA (one v1-f32 sweep launch), against the CPU twin and unlike the
+   live network.
 5. times: each kernel against its plain version at its main path's shape
    (CUDA events), and at the other shapes of the timed list; for every row
    the plain version captured once in a CUDA graph and replayed
@@ -87,11 +106,18 @@ Phases:
    (eager, graph, graph, eager): median ms per update and updates/s; then
    ten replays under torch.profiler: device time and busy share, launches
    per update outside the graph, the sweep's device time.
+   The HalfCheetah learning preset (``dreamer_times_phase``): ``act``
+   latency at batch 16 and 256, eval and collect; ``train_epoch`` at batch
+   128, the eager loop against graph replays, 128 updates an arm in blocks
+   of 16, in turns; ten replays and three eager updates under
+   torch.profiler (device time, busy share, kernels, launches outside the
+   graph, host ms per phase).
 6. the kernel summary line, the card line, and the result line.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -180,6 +206,18 @@ TRAIN_TIMED, TRAIN_WARMUP = 10, 3
 RING_CAPACITY, RING_FILL, RING_BLOCK = 100_000, 120_000, 10_000
 EPOCH_COMPARED, EPOCH_PROFILED, EPOCH_CHUNKED = 10, 10, 300
 EPOCH_TIMED, EPOCH_BLOCK = 256, 16
+# The learning presets (examples/configs/*_state_dreamer.yaml) at their
+# published widths: latent 32, hidden 128, 6 DiT blocks, K=15, batch 128,
+# 5 dynamics members, EFE horizon 5 x 10 trajectories; the environments'
+# (observation, action) dimensions: HalfCheetah-v4, Hopper-v4 and
+# Walker2d-v4. Steps 0-9 graph against eager per preset, and Hopper again with the anchor's
+# warm-up cut to 5 steps; acting at num_parallel_envs (16) and 256; the
+# timed epoch 128 updates an arm in blocks of 16.
+DREAMER_SHAPES = {"halfcheetah": (FLAGSHIP_OBS, FLAGSHIP_ACT), "hopper": (11, 3),
+                  "walker2d": (17, 6)}
+DREAMER_GATE_STEP = 5
+DREAMER_ACT_BATCHES = (16, 256)
+DREAMER_TIMED = 128
 # Kernel vs plain sweep, elementwise |kernel - plain| <= atol + rtol |plain|.
 # float32: another summation order, compounded over up to 100 dependent
 # steps of 6 blocks. bfloat16 weights: the same rounding sites on both
@@ -406,32 +444,62 @@ def parity_rows(kernels=None):
                        err_over_tol=float((err / (atol + rtol * want.abs())).max()))
 
 
-def train_batch(batch: int, seed: int, device) -> dict:
-    """A seeded replay batch at the flagship's shapes on ``device``."""
+def twin_of(agent):
+    """The same agent on the CPU; it shares the agent's config objects."""
+    from active_inference_diffusion_torch import DiffusionStateAgent
+
+    twin = DiffusionStateAgent(agent.observation_dim, agent.action_dim, agent.config,
+                               agent.training_config, device="cpu")
+    twin.core.load_state_dict(agent.core.state_dict())
+    return twin
+
+
+def train_batch(batch: int, seed: int, device, obs_dim=FLAGSHIP_OBS, act_dim=FLAGSHIP_ACT
+                ) -> dict:
+    """A seeded replay batch at the given shapes (the flagship's by default)
+    on ``device``."""
     rng = np.random.default_rng(seed)
     arrays = {
-        "observations": rng.standard_normal((batch, FLAGSHIP_OBS)),
-        "next_observations": rng.standard_normal((batch, FLAGSHIP_OBS)),
-        "actions": np.tanh(rng.standard_normal((batch, FLAGSHIP_ACT))),
+        "observations": rng.standard_normal((batch, obs_dim)),
+        "next_observations": rng.standard_normal((batch, obs_dim)),
+        "actions": np.tanh(rng.standard_normal((batch, act_dim))),
         "rewards": rng.standard_normal(batch),
         "dones": (rng.random(batch) < 0.05).astype(np.float32),
     }
     return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in arrays.items()}
 
 
+def state_fields(state) -> dict:
+    """The train state's tensors beside the optimizers, by name: the EMAs
+    (score, slow critic, policy), the return scale, log_alpha, time
+    importance, MINE running mean and reward normaliser."""
+    fields = {f"score EMA {k}": v for k, v in state.ema_score.items()}
+    fields.update({f"slow critic {k}": v for k, v in state.target_value.items()})
+    fields.update({f"EMA policy {k}": v for k, v in (state.ema_policy or {}).items()})
+    norm = state.reward_norm
+    fields.update({"return scale": state.return_scale, "log_alpha": state.log_alpha,
+                   "time importance": state.time_importance,
+                   "MINE running mean": state.epistemic_running_mean,
+                   "reward mean": norm.mean, "reward var": norm.var, "reward count": norm.count})
+    return fields
+
+
 def compare_train_steps(state, metrics, twin_state, twin_metrics) -> dict:
     """One train update on the card against the same update of its twin
     (the CPU twin, or another agent on the card), both from fresh states (so
     g = first moment / 0.1; after more updates the moments are compared as
-    they stand): the worst
-    err/tol of the metrics; per partition the relative L2 distance of its
+    they stand): the worst err/tol of the metrics and of the state's fields
+    (``state_fields``); per partition the relative L2 distance of its
     first moments, the worst err/tol of its parameters, and the elements
     under the sign rule with the partition's size, by the rule above."""
     def ratio(got, want, atol):
         return float(((got - want).abs() / (atol + TRAIN_RTOL * want.abs())).max())
 
+    twin_fields = state_fields(twin_state)
     out = {"metrics": max(ratio(metrics[k].cpu(), v.cpu(), TRAIN_ATOL)
-                          for k, v in twin_metrics.items())}
+                          for k, v in twin_metrics.items()),
+           "state": max(ratio(v.detach().cpu(), twin_fields[k].detach().cpu(), TRAIN_ATOL)
+                        for k, v in state_fields(state).items())}
     for part, opt in state.optimizers.items():
         twin_opt = twin_state.optimizers[part]
         mus = [opt.adamw.state[p]["exp_avg"].cpu() for p in opt.params]
@@ -452,9 +520,9 @@ def compare_train_steps(state, metrics, twin_state, twin_metrics) -> dict:
 
 def train_step_fails(worst: dict) -> list:
     """The checks of ``compare_train_steps``' result that failed."""
-    bad = ["metrics"] if worst["metrics"] > 1.0 else []
+    bad = [name for name in ("metrics", "state") if worst[name] > 1.0]
     for part, row in worst.items():
-        if part == "metrics":
+        if part in ("metrics", "state"):
             continue
         limit = MINE_REL_L2 if part == "epistemic" else MOMENT_REL_L2
         bad += [f"{part} moments"] * (row["moments_rel_l2"] > limit)
@@ -464,11 +532,12 @@ def train_step_fails(worst: dict) -> list:
 
 
 def describe_train_comparison(worst: dict) -> str:
-    return f"err/tol metrics {worst['metrics']:.3f}; per partition (first moments' relative " \
-           "L2, parameters err/tol, elements under the sign rule of the partition's): " + \
+    return f"err/tol metrics {worst['metrics']:.3f}, state fields {worst['state']:.3f}; per " \
+        "partition (first moments' relative L2, parameters err/tol, elements under the sign " \
+        "rule of the partition's): " + \
         "; ".join(f"{part} {row['moments_rel_l2']:.3e}, {row['params']:.3f}, "
                   f"{row['sign_rule']} of {row['elements']}"
-                  for part, row in worst.items() if part != "metrics")
+                  for part, row in worst.items() if part not in ("metrics", "state"))
 
 
 def profile_ms(fn, calls: int, names: str) -> dict:
@@ -500,23 +569,24 @@ def profile_ms(fn, calls: int, names: str) -> dict:
                 kernels_per_call=len(kernels) / calls, phases_host_ms=phases)
 
 
-def fill_ring(dev, seed: int = 320):
+def fill_ring(dev, seed: int = 320, obs_dim=FLAGSHIP_OBS, act_dim=FLAGSHIP_ACT):
     """A ``DeviceReplayBuffer`` of ``RING_CAPACITY`` transitions at the
-    flagship's shapes, filled with ``RING_FILL`` seeded ones in blocks of
-    ``RING_BLOCK``, and a plain numpy model of the same ring; returns the
-    buffer and a description of the check. Raises where pos, size or a
-    slot written on the second pass differ from the model's."""
+    given shapes (the flagship's by default), filled with ``RING_FILL``
+    seeded ones in blocks of ``RING_BLOCK``, and a plain numpy model of the
+    same ring; returns the buffer and a description of the check. Raises
+    where pos, size or a slot written on the second pass differ from the
+    model's."""
     from active_inference_diffusion_torch.data.replay import DeviceReplayBuffer
 
     rng = np.random.default_rng(seed)
     fields = {
-        "observations": rng.standard_normal((RING_FILL, FLAGSHIP_OBS), dtype=np.float32),
-        "actions": np.tanh(rng.standard_normal((RING_FILL, FLAGSHIP_ACT), dtype=np.float32)),
+        "observations": rng.standard_normal((RING_FILL, obs_dim), dtype=np.float32),
+        "actions": np.tanh(rng.standard_normal((RING_FILL, act_dim), dtype=np.float32)),
         "rewards": rng.standard_normal(RING_FILL, dtype=np.float32),
-        "next_observations": rng.standard_normal((RING_FILL, FLAGSHIP_OBS), dtype=np.float32),
+        "next_observations": rng.standard_normal((RING_FILL, obs_dim), dtype=np.float32),
         "dones": rng.random(RING_FILL) < 0.05,
     }
-    ring = DeviceReplayBuffer(RING_CAPACITY, (FLAGSHIP_OBS,), FLAGSHIP_ACT, device=dev)
+    ring = DeviceReplayBuffer(RING_CAPACITY, (obs_dim,), act_dim, device=dev)
     model = {k: np.zeros((RING_CAPACITY,) + v.shape[1:], v.dtype) for k, v in fields.items()}
     pos = size = 0
     for start in range(0, RING_FILL, RING_BLOCK):
@@ -567,9 +637,8 @@ def graph_updates(agent, state, ring_state, updates: int):
 
 def largest_difference(agent, state, metrics, twin, twin_state, twin_metrics) -> tuple:
     """The largest absolute difference between two trainings, and where:
-    every update's metrics, the parameters, the optimizers' moments, the
-    score EMA, the time importance, the reward normaliser and the MINE
-    running mean."""
+    every update's metrics, the parameters, the optimizers' moments and the
+    state's fields (``state_fields``)."""
     pairs = [(f"update {i} {k}", m[k], w[k])
              for i, (m, w) in enumerate(zip(metrics, twin_metrics)) for k in w]
     pairs += [(f"parameter {n}", p, q) for (n, p), q in
@@ -579,13 +648,8 @@ def largest_difference(agent, state, metrics, twin, twin_state, twin_metrics) ->
             for name in ("exp_avg", "exp_avg_sq"):
                 pairs.append((f"{part} {name} {i}", opt.adamw.state[p][name],
                               twin_state.optimizers[part].adamw.state[q][name]))
-    pairs += [(f"EMA {k}", state.ema_score[k], twin_state.ema_score[k]) for k in state.ema_score]
-    norm, twin_norm = state.reward_norm, twin_state.reward_norm
-    pairs += [("time importance", state.time_importance, twin_state.time_importance),
-              ("MINE running mean", state.epistemic_running_mean,
-               twin_state.epistemic_running_mean),
-              ("reward mean", norm.mean, twin_norm.mean), ("reward var", norm.var, twin_norm.var),
-              ("reward count", norm.count, twin_norm.count)]
+    twin_fields = state_fields(twin_state)
+    pairs += [(k, v, twin_fields[k]) for k, v in state_fields(state).items()]
     diffs = [(float((a.detach() - b.detach()).abs().max()), where) for where, a, b in pairs]
     return max(diffs)
 
@@ -612,7 +676,7 @@ def profile_epoch(agent, state, ring_state, updates: int) -> tuple:
                   and "Graph" not in n)
     return state, dict(
         sweep_kernels=len(sweeps), graph_launches=sum(1 for n in runtime if "GraphLaunch" in n),
-        launches_outside=outside / updates,
+        launches_outside=outside / updates, device_ops=len(device) / updates,
         device_ms=sum(e.time_range.elapsed_us() for e in device) / 1e3 / updates,
         sweep_ms=sum(e.time_range.elapsed_us() for e in sweeps) / 1e3 / updates,
         host_ms=host, metrics_finite=all(bool(torch.isfinite(v)) for v in metrics.values()))
@@ -711,22 +775,12 @@ def epoch_phase(dev, launches: dict) -> tuple:
                                             eager_state, eager_metrics)
         log(f"[4 epoch] flagship {variant} graph replays vs eager loop over steps 0-"
             f"{EPOCH_COMPARED - 1}: largest difference {largest:.3e}, in {where} (over the "
-            "metrics of every update, parameters, moments, EMA, time importance, reward "
-            "normaliser, MINE running mean); " + describe_train_comparison(worst))
+            "metrics of every update, parameters, moments and state fields); "
+            + describe_train_comparison(worst))
         failed = train_step_fails(worst)
         if failed:
             raise RuntimeError(f"epoch {variant}: the graph replays disagree with the eager "
                                f"loop: {failed}")
-        for name, (a, b) in {"time importance": (graph_state.time_importance,
-                                                 eager_state.time_importance),
-                             "MINE running mean": (graph_state.epistemic_running_mean,
-                                                   eager_state.epistemic_running_mean),
-                             "reward mean": (graph_state.reward_norm.mean,
-                                             eager_state.reward_norm.mean),
-                             "reward variance": (graph_state.reward_norm.var,
-                                                 eager_state.reward_norm.var)}.items():
-            if float(((a - b).abs() / (TRAIN_ATOL + TRAIN_RTOL * b.abs())).max()) > 1.0:
-                raise RuntimeError(f"epoch {variant}: the {name} disagrees")
         # R2: act after graph epochs uses the replays' weights, not a pack cached before them
         acts = [agent.act(obs_act, torch.Generator(device=dev).manual_seed(331),
                           deterministic=True, collect=False) for agent in pair]
@@ -805,6 +859,307 @@ def epoch_times_phase(ring, epoch_pairs: dict, launches: dict, card: str) -> Non
         f"fills), sweep kernel {prof['sweep_ms']:.4f} ms an update | {card}")
 
 
+def dreamer_agent(preset: str, device, **knobs):
+    """examples/configs/<preset>_state_dreamer.yaml loaded from its file by
+    the port's ``load_yaml_config``, ``knobs`` set on its config, at the
+    environment's dimensions on ``device``: the Flax initialisers from seed
+    400, then the score network ``randomize``d (seed 401)."""
+    from pathlib import Path
+
+    from active_inference_diffusion_torch import DiffusionStateAgent, load_yaml_config
+
+    path = Path(__file__).resolve().parent / "examples" / "configs" / f"{preset}_state_dreamer.yaml"
+    cfg, training, _ = load_yaml_config(str(path))
+    for name, value in knobs.items():
+        setattr(cfg, name, value)
+    obs_dim, act_dim = DREAMER_SHAPES[preset]
+    agent = DiffusionStateAgent(obs_dim, act_dim, cfg, training, device=device)
+    agent.core.init_params(torch.Generator(device=device).manual_seed(400))
+    randomize(agent.core.score_network, seed=401)
+    return agent
+
+
+def sweep_counts() -> tuple:
+    from active_inference_diffusion_torch.ops.denoise import LAUNCHES, PLAIN_RUNS
+
+    return sum(LAUNCHES.values()), sum(PLAIN_RUNS.values())
+
+
+def dreamer_epoch_check(dev, label, preset, ring_state, one_epoch=False, **knobs):
+    """Two trainers of the preset with the same weights, steps 0-9 from the
+    same state and draws: the eager loop of ``train_step_from_draws``, and
+    ``train_epoch`` graph replays (ten calls of one update, or with
+    ``one_epoch`` one call of ten). Held by the train check on the last
+    update (or, in one epoch, on the updates' mean metrics) and the final
+    state; no sweep may launch. Returns (eager agent, its state, graph
+    agent, its state, the kinds of update captured)."""
+    pair = [dreamer_agent(preset, dev, **knobs) for _ in range(2)]
+    eager, graph = pair
+    states = [agent.new_train_state(405) for agent in pair]
+    counts = sweep_counts()
+    eager_state, eager_metrics = eager_updates(eager, states[0], ring_state, EPOCH_COMPARED)
+    if one_epoch:
+        graph_state, mean = graph.train_epoch(states[1], ring_state, EPOCH_COMPARED)
+        graph_metrics = [mean]
+        eager_metrics = [{k: torch.stack([m[k] for m in eager_metrics]).mean()
+                          for k in eager_metrics[0]}]
+    else:
+        graph_state, graph_metrics = graph_updates(graph, states[1], ring_state, EPOCH_COMPARED)
+        mines = [s for s, m in enumerate(eager_metrics) if float(m["epistemic_mi"]) != 0.0]
+        if mines != [0, 5]:
+            raise RuntimeError(f"{label}: MINE at steps {mines}")
+    torch.cuda.synchronize()
+    kinds = sorted(graph._epoch_graphs.captured)
+    if sweep_counts() != counts or graph_state.step != EPOCH_COMPARED:
+        raise RuntimeError(f"{label}: a sweep ran, or the graph epoch ended at step "
+                           f"{graph_state.step}")
+    worst = compare_train_steps(graph_state, graph_metrics[-1], eager_state, eager_metrics[-1])
+    worst["metrics"] = max(
+        float(((g[k] - w[k]).abs() / (TRAIN_ATOL + TRAIN_RTOL * w[k].abs())).max())
+        for g, w in zip(graph_metrics, eager_metrics) for k in w)
+    largest, where = largest_difference(graph, graph_state, graph_metrics, eager, eager_state,
+                                        eager_metrics)
+    log(f"[4 dreamer] {label}: steps 0-{EPOCH_COMPARED - 1} as "
+        f"{'one train_epoch call' if one_epoch else f'{EPOCH_COMPARED} train_epoch calls'} of "
+        f"graph replays vs the eager loop; kinds captured (MINE, anchor open) {kinds}; largest "
+        f"difference {largest:.3e}, in {where} (over the metrics, parameters, moments and "
+        "state fields); " + describe_train_comparison(worst))
+    failed = train_step_fails(worst)
+    if failed:
+        raise RuntimeError(f"{label}: the graph replays disagree with the eager loop: {failed}")
+    return eager, eager_state, graph, graph_state, kinds
+
+
+def dreamer_acting_errors(agent, state) -> dict:
+    """Posterior acting on the card with ``state`` (its EMA policy where the
+    preset acts with it) against the CPU twin on the same draws, at each of
+    ``DREAMER_ACT_BATCHES``: ``act`` in eval and in collect mode (the
+    policy's eps and the exploration noise replayed from the card's
+    generator), ``act_warm`` (actions and latents), and the core's ``act``
+    with ``compute_efe_info`` (the EFE over the ensemble). Returns the
+    worst err/tol of each (actions at ``ACT_ATOL``, the EFE info at the
+    train check's rtol/atol)."""
+    from active_inference_diffusion_torch.models.policy import sample_action
+
+    dev = agent.device
+    twin = twin_of(agent)
+    twin_state = twin.new_train_state(0)
+    for field in ("ema_score", "target_value", "ema_policy"):
+        if getattr(state, field) is not None:
+            setattr(twin_state, field, {k: v.cpu() for k, v in getattr(state, field).items()})
+    atol = ACT_ATOL[torch.float32]
+    errs = {}
+    for batch in DREAMER_ACT_BATCHES:
+        obs = np.random.default_rng(batch).standard_normal((batch, agent.observation_dim))
+        obs = obs.astype(np.float32)
+        cpu_obs = torch.from_numpy(obs)
+        for mode in ("eval", "collect"):
+            gen = torch.Generator(device=dev).manual_seed(batch)
+            actions = agent.act(obs, gen, deterministic=mode == "eval", collect=mode == "collect",
+                                state=state)
+            if actions.shape != (batch, agent.action_dim) or not np.isfinite(actions).all():
+                raise RuntimeError(f"act returned {actions.shape}, or non-finite actions")
+            gen = torch.Generator(device=dev).manual_seed(batch)
+            start = agent.core.draw_start(batch, gen).to("cpu")
+            if mode == "eval":
+                want, _ = twin.act_from_start(cpu_obs, start, None, deterministic=True,
+                                              state=twin_state)
+            else:  # the policy's eps and the exploration noise, as act draws them
+                eps = torch.randn(actions.shape, generator=gen, device=dev).cpu()
+                noise = torch.randn(actions.shape, generator=gen, device=dev).cpu()
+                with torch.no_grad(), twin.core.swapped(twin.acting_modules(twin_state)):
+                    latent = twin.core.belief_latent(cpu_obs, start)
+                    want, _ = sample_action(twin.core.apply_policy(latent), eps,
+                                            squash=twin.core.policy_squash)
+                want = torch.clamp(want + noise * twin.exploration_noise, -1.0, 1.0)
+            errs[f"{mode} b={batch}"] = float(np.abs(want.numpy() - actions).max()) / atol
+        # act_warm: the previous latents play no part in posterior acting
+        gen = torch.Generator(device=dev).manual_seed(batch + 1)
+        prev = torch.randn((batch, agent.core.latent_dim), generator=gen, device=dev)
+        reset = np.arange(batch) % 3 == 0
+        state_before = gen.get_state()
+        actions, latents = agent.act_warm(obs, gen, prev, reset, deterministic=True, state=state)
+        gen.set_state(state_before)
+        fresh = torch.randn(prev.shape, generator=gen, device=dev).cpu()
+        start = agent.core.draw_start(batch, gen).to("cpu")
+        want, want_latents = twin.act_warm_from_start(
+            cpu_obs, prev.cpu(), torch.from_numpy(reset), fresh, start, None, deterministic=True,
+            state=twin_state)
+        errs[f"act_warm b={batch}"] = max(
+            float(np.abs(want.numpy() - actions).max()),
+            float((want_latents - latents.cpu()).abs().max())) / atol
+        # compute_efe_info, acting with the state's modules
+        gen = torch.Generator(device=dev).manual_seed(batch + 2)
+        with agent.core.swapped(agent.acting_modules(state)):
+            actions, info = agent.core.act(gen, torch.from_numpy(obs).to(dev),
+                                           deterministic=True, compute_efe_info=True)
+        gen = torch.Generator(device=dev).manual_seed(batch + 2)
+        start = agent.core.draw_start(batch, gen).to("cpu")
+        efe = agent.core.draw_efe(batch, gen).to("cpu")
+        with twin.core.swapped(twin.acting_modules(twin_state)):
+            want, want_info = twin.core.act_from_start(cpu_obs, start, None, deterministic=True,
+                                                       efe=efe)
+        errs[f"efe_info b={batch}"] = max(
+            [float((want - actions.cpu()).abs().max()) / atol]
+            + [float(((info[k].cpu() - v).abs() / (TRAIN_ATOL + TRAIN_RTOL * v.abs())).max())
+               for k, v in want_info.items()])
+    return errs
+
+
+def dreamer_phase(dev, launches: dict) -> dict:
+    """Phase 4g: the learning presets on the card (see ``main``). Adds the
+    sweep launches of the C4 check to ``launches``; returns the HalfCheetah
+    preset's ring and its (eager agent, state, graph agent, state) for the
+    timed phase."""
+    from active_inference_diffusion_torch.ops.denoise import LAUNCHES
+
+    out = {}
+    for preset, (obs_dim, act_dim) in DREAMER_SHAPES.items():
+        # a. one update with explicit draws, card against the CPU twin
+        agent = dreamer_agent(preset, dev)
+        twin = twin_of(agent)
+        cfg = agent.config
+        batch = train_batch(cfg.batch_size, 410, dev, obs_dim, act_dim)
+        state, twin_state = agent.new_train_state(402), twin.new_train_state(402)
+        draws = agent.draw_train(state, cfg.batch_size)
+        counts = sweep_counts()
+        state, metrics = agent.train_step_from_draws(state, batch, draws)
+        torch.cuda.synchronize()
+        if sweep_counts() != counts:
+            raise RuntimeError(f"dreamer {preset}: the update ran a sweep")
+        twin_state, twin_metrics = twin.train_step_from_draws(
+            twin_state, {k: v.cpu() for k, v in batch.items()}, draws.to("cpu"))
+        worst = compare_train_steps(state, metrics, twin_state, twin_metrics)
+        log(f"[4 dreamer] {preset}_state_dreamer.yaml B={cfg.batch_size} D={cfg.latent_dim} "
+            f"H={cfg.hidden_dim} L={cfg.score_num_layers} ensemble {cfg.num_dynamics_ensemble}, "
+            f"{cfg.efe_horizon} x {cfg.num_efe_trajectories} imagined trajectories: one update "
+            "(a MINE step) with explicit draws vs CPU twin, no sweep: "
+            + describe_train_comparison(worst) + "; metrics "
+            + json.dumps({k: round(float(v), 6) for k, v in metrics.items()}))
+        failed = train_step_fails(worst)
+        if failed:
+            raise RuntimeError(f"dreamer {preset}: the card's update disagrees with the CPU "
+                               f"twin: {failed}")
+
+        # b. graph replays against the eager loop over steps 0-9
+        ring, described = fill_ring(dev, 420, obs_dim, act_dim)
+        log(f"[4 dreamer] {preset} ring: {described}")
+        pair = dreamer_epoch_check(dev, f"{preset}_state_dreamer.yaml", preset, ring.state)
+        if preset == "hopper":
+            # c. the anchor's gate opens inside one train_epoch
+            _, _, _, _, kinds = dreamer_epoch_check(
+                dev, f"hopper_state_dreamer.yaml with policy_anchor_warmup_steps="
+                f"{DREAMER_GATE_STEP} (this knob changed for this check only)", preset,
+                ring.state, one_epoch=True, policy_anchor_warmup_steps=DREAMER_GATE_STEP)
+            if kinds != [(False, False), (False, True), (True, False), (True, True)]:
+                raise RuntimeError(f"hopper: the anchor's gate did not open inside the epoch: "
+                                   f"kinds {kinds}")
+        eager, eager_state, graph, graph_state, _ = pair
+        if preset == "halfcheetah":
+            out = dict(ring=ring, pair=pair)
+
+        # d. posterior acting with the trained state, card against the CPU twin
+        counts = sweep_counts()
+        errs = dreamer_acting_errors(graph, graph_state)
+        torch.cuda.synchronize()
+        worst = max(errs.values())
+        log(f"[4 dreamer] {preset} act_from_posterior with the trained state"
+            f"{' (the EMA policy acts)' if graph_state.ema_policy is not None else ''} vs CPU "
+            "twin: act eval and collect, act_warm, act with compute_efe_info (the EFE over the "
+            "ensemble), err/tol " + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+            + f" (actions atol {ACT_ATOL[torch.float32]:g}; EFE info rtol {TRAIN_RTOL:g} atol "
+            f"{TRAIN_ATOL:g}); sweeps launched {sweep_counts()[0] - counts[0]}")
+        if worst > 1.0 or sweep_counts() != counts:
+            raise RuntimeError(f"{preset}: posterior acting disagrees with the CPU twin, or ran "
+                               "a sweep")
+
+    # e. C4: use_ema_for_act acts with the score network's EMA (the sweep
+    # kernel on the EMA's own pack), card against the CPU twin
+    agent = dreamer_agent("halfcheetah", dev, act_from_posterior=False, use_ema_for_act=True)
+    state = agent.new_train_state(406)
+    ema_net = copy.deepcopy(agent.core.score_network)
+    randomize(ema_net, seed=407)
+    with torch.no_grad():
+        for name, p in ema_net.named_parameters():
+            state.ema_score[name].copy_(p)
+    twin = twin_of(agent)
+    twin_state = twin.new_train_state(406)
+    twin_state.ema_score = {k: v.cpu() for k, v in state.ema_score.items()}
+    obs = np.random.default_rng(408).standard_normal((16, DREAMER_SHAPES["halfcheetah"][0]))
+    obs = obs.astype(np.float32)
+    kernel = "denoise_sweep_v1_f32"
+    before = LAUNCHES[kernel]
+    gen = torch.Generator(device=dev).manual_seed(409)
+    actions = agent.act(obs, gen, deterministic=True, collect=False, state=state)
+    torch.cuda.synchronize()
+    launched = LAUNCHES[kernel] - before
+    start = agent.core.draw_start(16, torch.Generator(device=dev).manual_seed(409))
+    want, _ = twin.act_from_start(torch.from_numpy(obs), start.to("cpu"), None,
+                                  deterministic=True, state=twin_state)
+    live, _ = twin.core.act_from_start(torch.from_numpy(obs), start.to("cpu"), None,
+                                       deterministic=True)
+    err = float(np.abs(want.numpy() - actions).max())
+    moved = float(np.abs(live.numpy() - actions).max())
+    log(f"[4 dreamer] C4: halfcheetah_state_dreamer.yaml with act_from_posterior off and "
+        f"use_ema_for_act on, K={agent.config.diffusion.num_diffusion_steps}, B=16: act with the "
+        f"state's score EMA, {launched} {kernel} launch, vs CPU twin max|err| {err:.3e} (tol "
+        f"{ACT_ATOL[torch.float32]:g}); the live network's actions differ by {moved:.3e}")
+    if launched != 1 or err > ACT_ATOL[torch.float32] or moved <= ACT_ATOL[torch.float32]:
+        raise RuntimeError("C4: acting with the score EMA failed")
+    launches[kernel] += launched
+    return out
+
+
+def dreamer_times_phase(dreamer: dict, card: str) -> None:
+    """Phase 5, the HalfCheetah learning preset: ``act`` latency at 16 and
+    256; ``train_epoch``, the eager loop against graph replays in turns;
+    ten replays and three eager updates under torch.profiler."""
+    ring = dreamer["ring"]
+    eager, eager_state, graph, graph_state, _ = dreamer["pair"]
+    obs_dim = DREAMER_SHAPES["halfcheetah"][0]
+    gen = torch.Generator(device=graph.device).manual_seed(0)
+    for batch in DREAMER_ACT_BATCHES:
+        obs = np.random.default_rng(batch).standard_normal((batch, obs_dim)).astype(np.float32)
+        for mode in ("eval", "collect"):
+            def call():
+                graph.act(obs, gen, deterministic=mode == "eval", collect=mode == "collect",
+                          state=graph_state)
+
+            for _ in range(WARMUP_CALLS):
+                call()
+            act_ms = statistics.median(host_ms(call, TIMED_CALLS))
+            log(f"[5 times] act latency halfcheetah_state_dreamer b={batch} {mode} "
+                f"(act_from_posterior): median {act_ms:.4f} ms over {TIMED_CALLS} calls | {card}")
+    batch = graph.config.batch_size
+    eager_state, graph_state, times = epoch_times(eager, eager_state, graph, graph_state,
+                                                  ring.state, updates=DREAMER_TIMED)
+    graph_state, prof = profile_epoch(graph, graph_state, ring.state, EPOCH_PROFILED)
+
+    def eager_call():
+        nonlocal eager_state
+        eager_state, _ = eager_updates(eager, eager_state, ring.state, 1)
+
+    eager_prof = profile_ms(eager_call, 3, "denoise_sweep")
+    log(f"[5 times] train_epoch halfcheetah_state_dreamer B={batch}, {DREAMER_TIMED} updates an "
+        f"arm in blocks of {EPOCH_BLOCK}, in turns (eager, graph, graph, eager): eager loop "
+        f"median {times['eager']['median_ms']:.4f} ms an update, "
+        f"{times['eager']['updates_per_s']:.3f} updates/s; graph replays median "
+        f"{times['graph']['median_ms']:.4f} ms an update, {times['graph']['updates_per_s']:.3f} "
+        f"updates/s ({times['graph']['updates_per_s'] / times['eager']['updates_per_s']:.2f}x); "
+        f"profiled over {EPOCH_PROFILED} replays: host {prof['host_ms']:.4f} ms, device "
+        f"{prof['device_ms']:.4f} ms an update in {prof['device_ops']:.0f} kernels and copies, "
+        f"device busy {prof['device_ms'] / prof['host_ms']:.3%}, "
+        f"{prof['launches_outside']:.1f} launches an update outside the graph, "
+        f"{prof['sweep_kernels']} sweep kernels; eager, 3 updates profiled: host "
+        f"{eager_prof['host_ms']:.4f} ms, device {eager_prof['device_ms']:.4f} ms an update in "
+        f"{eager_prof['kernels_per_call']:.0f} kernels, busy "
+        f"{eager_prof['device_ms'] / eager_prof['host_ms']:.3%}; host ms an update by phase "
+        + json.dumps({k: round(v, 3) for k, v in eager_prof["phases_host_ms"].items()})
+        + f" | {card}")
+    if prof["sweep_kernels"] or not prof["metrics_finite"]:
+        raise RuntimeError("dreamer epoch: a sweep in the trace, or non-finite metrics")
+
+
 def main() -> int:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -878,13 +1233,6 @@ def main() -> int:
             raise RuntimeError(f"act returned {actions.shape}, finite={np.isfinite(actions).all()}")
         if np.abs(actions).max() > 1.0:
             raise RuntimeError("act returned actions outside [-1, 1]")
-
-    def twin_of(agent):
-        """The same agent on the CPU; it shares the agent's config objects."""
-        twin = DiffusionStateAgent(agent.observation_dim, agent.action_dim, agent.config,
-                                   agent.training_config, device="cpu")
-        twin.core.load_state_dict(agent.core.state_dict())
-        return twin
 
     def main_path(label, agent, twin, kernel, batch, calls, warm_calls=0, seed=0):
         """``calls`` eval + ``calls`` collect ``act`` calls, then
@@ -1110,6 +1458,11 @@ def main() -> int:
     # 4f. The replay ring and train_epoch: each update a replayed CUDA graph.
     ring, epoch_pairs = epoch_phase(dev, launches)
 
+    # 4g. The learning presets: posterior beliefs, the imagined actor-critic.
+    t0 = time.perf_counter()
+    dreamer = dreamer_phase(dev, launches)
+    log(f"[4 dreamer] phase 4g in {time.perf_counter() - t0:.1f} s")
+
 
     # -- 5. times -----------------------------------------------------------
     hum = dict(batch=256, latent=64, hidden=256, layers=6, schedule_len=50, steps=50)
@@ -1229,6 +1582,9 @@ def main() -> int:
 
     # train_epoch at the flagship, v1: the eager loop against graph replays, in turns
     epoch_times_phase(ring, epoch_pairs, launches, card)
+    t0 = time.perf_counter()
+    dreamer_times_phase(dreamer, card)
+    log(f"[5 times] the learning preset's times in {time.perf_counter() - t0:.1f} s")
 
     # -- 6. summary ---------------------------------------------------------
     print(json.dumps({"kernels": [{

@@ -243,13 +243,13 @@ def test_agent_act_on_cpu():
 @pytest.mark.parametrize(
     "overrides,call",
     [
-        (dict(posterior_beliefs=True, act_from_posterior=True), "act"),
+        (dict(ground_beliefs=True), "train_step"),
         (dict(plan_candidates=4), "act"),
         (dict(semantics=SemanticsConfig(mode="faithful")), "compute_efe_info"),
         ({}, "return_trajectory"),
         (dict(pixel_observation=True), "construct"),
     ],
-    ids=["act_from_posterior", "act_planned", "efe_info", "trajectory", "pixels"],
+    ids=["ground_beliefs", "act_planned", "efe_info", "trajectory", "pixels"],
 )
 def test_unported_branches_raise(overrides, call):
     cfg = tiny_config(**overrides)
@@ -264,6 +264,11 @@ def test_unported_branches_raise(overrides, call):
             agent.core.act(g, t(obs), compute_efe_info=True)
         elif call == "return_trajectory":
             agent.core.generate_beliefs(g, t(obs), return_trajectory=True)
+        elif call == "train_step":
+            batch = {k: t(normal(26 + i, *shape)) for i, (k, shape) in enumerate(
+                (("observations", (2, OBS_DIM)), ("next_observations", (2, OBS_DIM)),
+                 ("actions", (2, ACT_DIM)), ("rewards", (2,)), ("dones", (2,))))}
+            agent.train_step(agent.new_train_state(0), batch)
 
 
 def test_default_device_is_cuda():
@@ -288,7 +293,10 @@ def test_port_imports_no_jax():
     """Building the humanoid_state.yaml agent on the CPU and calling ``act``
     and ``act_warm``, then one ``train_step`` of the same config cut to a
     tiny width and a ``train_epoch`` of two updates over a device replay
-    ring on the CPU, loads no module of jax, flax or the JAX package."""
+    ring on the CPU, then the same for hopper_state_dreamer.yaml (loaded
+    from its file, cut to a tiny width: posterior acting with the EMA
+    policy, the imagined actor-critic over the ensemble), loads no module of
+    jax, flax or the JAX package."""
     code = (
         "import sys\n"
         "import numpy as np, torch\n"
@@ -323,6 +331,17 @@ def test_port_imports_no_jax():
         "state, metrics = agent.train_epoch(state, ring.state, 2)\n"
         "assert state.step == 3 and agent.total_steps == 2\n"
         "assert all(bool(torch.isfinite(v)) for v in metrics.values())\n"
+        "from active_inference_diffusion_torch import load_yaml_config\n"
+        "cfg, training, _ = load_yaml_config('examples/configs/hopper_state_dreamer.yaml')\n"
+        "cfg.latent_dim, cfg.hidden_dim, cfg.score_num_layers, cfg.batch_size = 8, 32, 1, 4\n"
+        "agent = DiffusionStateAgent(HUMANOID_OBS_DIM, HUMANOID_ACT_DIM, cfg, training,\n"
+        "                            device='cpu')\n"
+        "state = agent.new_train_state(0)\n"
+        "a = agent.act(obs, g, state=state)\n"
+        "assert a.shape == (2, HUMANOID_ACT_DIM) and np.isfinite(a).all()\n"
+        "state, metrics = agent.train_step(state, batch)\n"
+        "state, metrics = agent.train_epoch(state, ring.state, 2)\n"
+        "assert state.step == 3 and all(bool(torch.isfinite(v)) for v in metrics.values())\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "                ('jax', 'flax', 'active_inference_diffusion_tpu'))\n"
         "assert not loaded, loaded\n"

@@ -16,7 +16,9 @@ later steps: rtol 1e-2 / atol 5e-3. The kernels pad a hidden width to a
 multiple of 64; most small shapes use hidden 64, and the padded and the
 streamed plans have tests of their own. The last tests hold ``train_epoch``
 on the card, each update a replayed CUDA graph, against the eager loop of
-the same updates, and a capture that fails.
+the same updates (the flagship's flags, and hopper_state_dreamer.yaml's
+across the policy anchor's gate), a capture that fails, and acting with
+the score network's EMA.
 """
 
 import numpy as np
@@ -576,3 +578,99 @@ def test_a_capture_that_fails_raises(cuda, monkeypatch):
     assert state.step == 0 and agent.total_steps == 0
     assert all(o.count == 0 for o in state.optimizers.values())
     assert all(torch.equal(p, b) for p, b in zip(core.parameters(), before))
+
+
+def _dreamer_pair(cuda, warmup=3, batch=16):
+    """hopper_state_dreamer.yaml cut to latent 8 / hidden 64 / 2 blocks:
+    two agents with the same weights and fresh train states (the anchor's
+    warm-up ``warmup`` steps), and a seeded ring on the card."""
+    from active_inference_diffusion_torch import load_yaml_config
+
+    agents, states = [], []
+    for _ in range(2):
+        cfg, training, _ = load_yaml_config("examples/configs/hopper_state_dreamer.yaml")
+        cfg.latent_dim, cfg.hidden_dim, cfg.score_num_layers = 8, 64, 2
+        cfg.batch_size, cfg.policy_anchor_warmup_steps = batch, warmup
+        agents.append(DiffusionStateAgent(OBS_DIM, 2, cfg, training))
+        states.append(agents[-1].init_train_state(0))
+    ring = DeviceReplayBuffer(256, (OBS_DIM,), 2)
+    rng = np.random.default_rng(5)
+    ring.add_batch(rng.standard_normal((200, OBS_DIM)), np.tanh(rng.standard_normal((200, 2))),
+                   rng.standard_normal(200), rng.standard_normal((200, OBS_DIM)),
+                   rng.random(200) < 0.1)
+    return agents, states, ring.state
+
+
+def test_dreamer_graph_epoch_crosses_the_anchor_gate(cuda):
+    """Hopper's flags, six updates from step 0 (MINE at 0 and 5, the
+    anchor open from step 3) as graph replays in ONE ``train_epoch`` call,
+    against the eager loop: every metric's mean, the parameters, and the
+    state's fields, the slow critic, return scale, log_alpha and EMA policy
+    among them; four kinds of update captured, no sweep launched."""
+    (graph, eager), (gstate, estate), ring = _dreamer_pair(cuda)
+    before = dict(LAUNCHES), dict(PLAIN_RUNS)
+    gstate, got = graph.train_epoch(gstate, ring, 6)
+    assert graph._epoch_graphs.captures == 4
+    assert set(graph._epoch_graphs.captured) == {(True, False), (False, False), (False, True),
+                                                 (True, True)}
+    assert (dict(LAUNCHES), dict(PLAIN_RUNS)) == before
+    estate, want = _eager_updates(eager, estate, ring, 6)
+    for k in got:
+        mean = torch.stack([w[k] for w in want]).mean()
+        torch.testing.assert_close(got[k], mean, **TOL[torch.float32], msg=k)
+    _assert_same_training(graph, gstate, eager, estate)
+    for name in ("return_scale", "log_alpha"):
+        torch.testing.assert_close(getattr(gstate, name), getattr(estate, name),
+                                   **TOL[torch.float32], msg=name)
+    assert float(gstate.return_scale) != 1.0
+    for field in ("target_value", "ema_policy", "ema_score"):
+        for k, v in getattr(gstate, field).items():
+            torch.testing.assert_close(v, getattr(estate, field)[k], **TOL[torch.float32],
+                                       msg=f"{field} {k}")
+    # the anchor's gate is part of the graph's kind: an epoch with it closed
+    # throughout differs from one where it opens
+    (late, _), (lstate, _), _ = _dreamer_pair(cuda, warmup=100)
+    lstate, _ = late.train_epoch(lstate, ring, 6)
+    assert not torch.equal(lstate.ema_policy["mean_fc2.weight"], gstate.ema_policy["mean_fc2.weight"])
+
+
+def test_acting_with_the_score_ema_packs_it_apart(cuda):
+    """C4 on the card: with ``use_ema_for_act`` the sweep kernel runs the
+    EMA's own pack; the live network's cached pack is never the EMA's; an
+    in-place EMA update rebuilds the EMA's pack; the actions equal the CPU
+    twin's acting with the same state."""
+    cfg = ActiveInferenceConfig(observation_dim=OBS_DIM, action_dim=2, latent_dim=8,
+                                hidden_dim=64, score_num_layers=2, use_ema_for_act=True,
+                                deterministic_beliefs=True,
+                                diffusion=DiffusionConfig(num_diffusion_steps=5))
+    agent = DiffusionStateAgent(OBS_DIM, 2, cfg, TrainingConfig())
+    state = agent.init_train_state(0)
+    randomize(agent.core.score_network, 3)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    with torch.no_grad():
+        for v in state.ema_score.values():
+            v.add_(0.3 * torch.randn(v.shape, generator=gen, device=cuda))
+    twin = DiffusionStateAgent(OBS_DIM, 2, cfg, TrainingConfig(), device="cpu")
+    twin.core.load_state_dict(agent.core.state_dict())
+    twin_state = twin.new_train_state(0)
+    obs = np.random.default_rng(7).standard_normal((8, OBS_DIM)).astype(np.float32)
+    name = kernel_name("v1", torch.float32)
+    acts = []
+    for _ in range(2):
+        twin_state.ema_score = {k: v.cpu() for k, v in state.ema_score.items()}
+        launches = LAUNCHES[name]
+        got = agent.act(obs, torch.Generator(device=cuda).manual_seed(1), deterministic=True,
+                        collect=False, state=state)
+        assert LAUNCHES[name] == launches + 1
+        start = agent.core.draw_start(8, torch.Generator(device=cuda).manual_seed(1))
+        want, _ = twin.act_from_start(torch.from_numpy(obs), start.to("cpu"), None,
+                                      deterministic=True, state=twin_state)
+        np.testing.assert_allclose(got, want.numpy(), rtol=1e-4, atol=1e-4)
+        live_packs = agent.core.score_network.__dict__.get("_packed_trunks", {})
+        ema_ptrs = {v.data_ptr() for v in state.ema_score.values()}
+        assert all(not ema_ptrs & {p for p, _ in key} for key, _ in live_packs.values())
+        acts.append(got)
+        with torch.no_grad():
+            for v in state.ema_score.values():
+                v.mul_(0.5)
+    assert not np.allclose(acts[0], acts[1])

@@ -38,11 +38,19 @@ from active_inference_diffusion_torch.agents.state_agent import (
     DiffusionStateAgent,
     TrainDraws,
 )
-from active_inference_diffusion_torch.bridge import load_jax_params
+from active_inference_diffusion_torch.bridge import (
+    group_arrays,
+    load_jax_params,
+    train_state_from_jax,
+)
 from active_inference_diffusion_torch.core.active_inference import (
     DiffusionActiveInference as TorchCore,
 )
-from active_inference_diffusion_torch.core.active_inference import EfeDraws, ElboDraws
+from active_inference_diffusion_torch.core.active_inference import (
+    GROUP_MODULES,
+    EfeDraws,
+    ElboDraws,
+)
 from active_inference_diffusion_torch.core.epistemic import EstimatorMasks, MineDraws
 
 # The tier-1 run puts several test workers on one host, each beside XLA's own
@@ -286,18 +294,24 @@ def elbo_draws(jcore, params, elbo_key, time_importance, batch):
     )
 
 
-def efe_draws(cfg, efe_key, batch):
-    """The EFE's draws: its key split per horizon step, each step's key in 3
-    (policy, dynamics, epistemic); the dynamics key draws the transition
-    noise."""
+def efe_draws(cfg, efe_key, batch, parts=3):
+    """An imagined rollout's draws: its key split per horizon step, each
+    step's key in ``parts`` (the EFE's 3: policy, dynamics, epistemic; the
+    imagined objective's 2: policy, dynamics); the dynamics key draws the
+    transition noise and, with an ensemble, each row's member on
+    ``fold_in(dynamics key, 1)`` (``imagine_next``)."""
     n = cfg.num_efe_trajectories * batch
+    k = cfg.num_dynamics_ensemble
 
     def step(key):
-        pol_key, dyn_key, _ = jax.random.split(key, 3)
-        return jax.random.normal(pol_key, (n, ACT_DIM)), jax.random.normal(dyn_key, (n, D))
+        pol_key, dyn_key = jax.random.split(key, parts)[:2]
+        out = dict(policy_noise=jax.random.normal(pol_key, (n, ACT_DIM)),
+                   dynamics_noise=jax.random.normal(dyn_key, (n, D)))
+        if k > 1:
+            out["members"] = jax.random.randint(jax.random.fold_in(dyn_key, 1), (n,), 0, k)
+        return out
 
-    pol, dyn = jax.vmap(step)(jax.random.split(efe_key, cfg.efe_horizon))
-    return dict(policy_noise=pol, dynamics_noise=dyn)
+    return jax.vmap(step)(jax.random.split(efe_key, cfg.efe_horizon))
 
 
 def mine_draws(jcore, params, epi_key, batch, num_samples=MINE_SAMPLES):
@@ -330,19 +344,23 @@ def to_torch(tree):
 def draws_from_jax(jagent, state, batch):
     """Every draw of the JAX agent's ``train_step`` from ``state``: its key
     split in 7 (next, belief, elbo, policy, value, epistemic, encoder); the
-    belief key's first half draws the sweep's start. One compiled program
-    per agent and batch, which always draws the MINE update's too."""
+    belief key's first half draws the sweep's start, or with
+    ``posterior_beliefs`` the belief key itself the posterior's eps; the
+    policy key draws the actor's rollout (the imagined objective's with
+    ``imagined_value_targets``). One compiled program per agent and batch,
+    which always draws the MINE update's too."""
     cfg, core = jagent.config, jagent.core
 
     def build():
         @fast_jit
         def draw(rng, params, time_importance):
             _, belief_key, elbo_key, policy_key, _, epi_key, _ = jax.random.split(rng, 7)
-            init_key, _ = jax.random.split(belief_key)
+            if not cfg.posterior_beliefs:
+                belief_key, _ = jax.random.split(belief_key)
             return dict(
-                belief=jax.random.normal(init_key, (2 * batch, D)),
+                belief=jax.random.normal(belief_key, (2 * batch, D)),
                 elbo=elbo_draws(core, params, elbo_key, time_importance, batch),
-                efe=efe_draws(cfg, policy_key, batch),
+                efe=efe_draws(cfg, policy_key, batch, 2 if cfg.imagined_value_targets else 3),
                 mine=mine_draws(core, params, epi_key, batch),
             )
 
@@ -351,7 +369,7 @@ def draws_from_jax(jagent, state, batch):
     draw = _cached(("draws", _config_key(cfg), batch), build)
     d = to_torch(draw(state.rng, state.params, state.time_importance))
     mine = None
-    if int(state.step) % cfg.epistemic_update_every == 0:
+    if int(np.asarray(state.step)) % cfg.epistemic_update_every == 0:
         mine = MineDraws(d["mine"]["noise"], d["mine"]["directions"], d["mine"]["perms"],
                          EstimatorMasks(*d["mine"]["masks"]))
     return TrainDraws(d["belief"], torch.tensor(0, dtype=torch.int64), ElboDraws(**d["elbo"]),
@@ -386,3 +404,242 @@ def jax_train_step(jagent, state, batch):
     step = _cached(("train_step", _config_key(jagent.config)),
                    lambda: fast_jit(jagent._train_step_impl))
     return step(state, batch)
+
+
+# -- train updates of both packages, held against each other -----------------
+#
+# The rules (tests/test_torch_train.py's docstring states them in full):
+# metrics and state fields at MODEL_TOL; gradients, as Adam's first moments,
+# at GRAD_RTOL / GRAD_ATOL times the partition's largest moment; parameters
+# at MODEL_TOL plus 2 lr a step where the two gradients' signs differ, with
+# fewer than 1 in 100 elements of a partition under that rule.
+
+GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
+RING = 16  # the epoch's ring: 20 transitions wrap it
+
+
+def make_batch(seed: int):
+    rng = np.random.default_rng(seed)
+    return {
+        "observations": normal(seed, B, OBS_DIM),
+        "next_observations": normal(seed + 1, B, OBS_DIM),
+        "actions": np.tanh(normal(seed + 2, B, ACT_DIM)),
+        "rewards": 2.0 * normal(seed + 3, B),
+        "dones": (rng.random(B) < 0.25).astype(np.float32),
+    }
+
+
+def port_grads(out, part, step):
+    """A partition's port gradients at ``step``, in its optimizer's order:
+    the clipped gradients its AdamW took, where it stepped (rebuilding them
+    from the moments, as for JAX, would leave a residue of ~1e-10 where the
+    gradient is exactly 0: torch's AdamW takes the moment by ``lerp``, not
+    as 0.9 mu + 0.1 g), else from the first moments."""
+    if part in out[step]["grads"]:
+        return out[step]["grads"][part]
+    mu = out[step]["mu"][part]
+    if step == 0:
+        return [m / 0.1 for m in mu]
+    return [(m - 0.9 * m0) / 0.1 for m, m0 in zip(mu, out[step - 1]["mu"][part])]
+
+
+def jax_grads(out, agent, part, step):
+    """A partition's JAX gradients at ``step``, by (group, name), from the
+    first moments."""
+    mu = jax_by_name(agent, adam_mu(out[step]["jstate"].opt_states[part]))
+    if step == 0:
+        return {k: v / 0.1 for k, v in mu.items()}
+    mu0 = jax_by_name(agent, adam_mu(out[step - 1]["jstate"].opt_states[part]))
+    return {k: (v - 0.9 * mu0[k]) / 0.1 for k, v in mu.items()}
+
+
+def adam_mu(opt_state):
+    """The first moment of an ``optax.chain(clip, adamw)`` state."""
+    for part in jax.tree_util.tree_leaves(opt_state, is_leaf=lambda x: hasattr(x, "mu")):
+        if hasattr(part, "mu"):
+            return part.mu
+    raise KeyError("no Adam state")
+
+
+def named(agent, partition):
+    """(group, torch name) of each parameter of a partition, in its
+    optimizer's order."""
+    return [(g, n) for g in agent.PARTITIONS[partition]
+            for n, _ in getattr(agent.core, GROUP_MODULES[g]).named_parameters()]
+
+
+def jax_by_name(agent, tree):
+    """A tree of JAX parameter groups as {(group, torch name): array}."""
+    out = {}
+    for group, sub in tree.items():
+        if group in GROUP_MODULES:
+            module = getattr(agent.core, GROUP_MODULES[group])
+            out.update({(group, n): a for n, a in group_arrays(module, sub, group).items()})
+    return out
+
+
+def _numpy_dict(tensors):
+    return None if tensors is None else {n: v.numpy().copy() for n, v in tensors.items()}
+
+
+def record(agent, state, metrics, jstate, jmetrics, draws, grads) -> dict:
+    """One update of both agents, as numpy; ``grads`` holds what the port's
+    optimizers took in it."""
+    out = dict(
+        jmetrics=numpy_tree(jmetrics), metrics={k: v.numpy() for k, v in metrics.items()},
+        jstate=numpy_tree(jstate), mine=draws.mine is not None,
+        params={(g, n): p.detach().numpy().copy() for part in agent.PARTITIONS
+                for (g, n), p in zip(named(agent, part), state.optimizers[part].params)},
+        mu={part: [state.optimizers[part].adamw.state[p]["exp_avg"].numpy().copy()
+                   for p in state.optimizers[part].params] for part in agent.PARTITIONS},
+        lr={part: opt.adamw.param_groups[0]["lr"] for part, opt in state.optimizers.items()},
+        ema=_numpy_dict(state.ema_score), target_value=_numpy_dict(state.target_value),
+        ema_policy=_numpy_dict(state.ema_policy),
+        time_importance=state.time_importance.numpy().copy(),
+        reward_norm=[float(x) for x in (state.reward_norm.mean, state.reward_norm.var,
+                                         state.reward_norm.count)],
+        scalars=[float(x) for x in (state.epistemic_running_mean, state.return_scale,
+                                    state.log_alpha)],
+        step=state.step, grads=dict(grads),
+    )
+    grads.clear()
+    return out
+
+
+def start(cfg, jstate=None):
+    """The JAX agent and its step-0 state (``jax_train_state`` unless
+    given), the port's agent on the same state, and a dict that takes each
+    port optimizer's clipped gradients (partition -> numpy arrays) when it
+    steps."""
+    jagent = jax_agent(cfg)
+    jstate = jax_train_state(cfg) if jstate is None else jstate
+    agent = DiffusionStateAgent(
+        OBS_DIM, ACT_DIM, port_config(cfg), port_config(TrainingConfig()), device=CPU
+    )
+    state = train_state_from_jax(agent, numpy_tree(jstate))
+    grads = {}
+    for part, opt in state.optimizers.items():
+        opt.adamw.register_step_pre_hook(
+            lambda adamw, args, kwargs, part=part, params=opt.params: grads.__setitem__(
+                part, [q.grad.detach().numpy().copy() for q in params]))
+    return jagent, [jstate], agent, state, grads
+
+
+def chained_steps(cfg, jstate=None, updates: int = 2):
+    """``updates`` chained ``train_step``s of both agents from one state,
+    a batch each (``make_batch``), the port on the JAX step's draws.
+    Returns (the port's agent, the JAX states, the records with each
+    update's batch and draws)."""
+    jagent, jstates, agent, state, grads = start(cfg, jstate)
+    out = []
+    for i in range(updates):
+        batch = make_batch(10 * i + 3)
+        draws = draws_from_jax(jagent, jstates[-1], B)
+        jstate, jmetrics = jax_train_step(jagent, jstates[-1],
+                                          {k: jnp.asarray(v) for k, v in batch.items()})
+        jstates.append(jstate)
+        state, metrics = agent.train_step_from_draws(
+            state, {k: t(v) for k, v in batch.items()}, draws
+        )
+        out.append(record(agent, state, metrics, jstate, jmetrics, draws, grads))
+        out[-1].update(batch=batch, draws=draws)
+    return agent, jstates, out
+
+
+def chained_epochs(cfg, jstate=None, updates: int = 3):
+    """``updates`` chained calls of the port's ``train_epoch`` of one update
+    each, over a device ring on the CPU, against the JAX ``train_epoch``'s
+    scan body on the same transitions: ``replay_sample`` on ``fold_in(k,
+    0)``, then the JAX train step (the program ``chained_steps`` compiles).
+    The port's ring indices are JAX's ``randint`` draw on that key, its
+    update's draws ``draws_from_jax``."""
+    from active_inference_diffusion_tpu.data import replay as jreplay
+    from active_inference_diffusion_torch.data.replay import DeviceReplayBuffer
+
+    jagent, jstates, agent, state, grads = start(cfg, jstate)
+    rng = np.random.default_rng(7)
+    data = (normal(70, 20, OBS_DIM), np.tanh(normal(71, 20, ACT_DIM)), 2.0 * normal(72, 20),
+            normal(73, 20, OBS_DIM), rng.random(20) < 0.25)
+    jring = jreplay.replay_add_batch(jreplay.replay_init(RING, (OBS_DIM,), ACT_DIM),
+                                     *(jnp.asarray(x) for x in data))
+    ring = DeviceReplayBuffer(RING, (OBS_DIM,), ACT_DIM, device=CPU)
+    ring.add_batch(*data)
+    pending = []
+    agent.draw_update = lambda state, replay_state, batch_size: pending.pop(0)
+    out = []
+    for u in range(updates):
+        key = jax.random.fold_in(jax.random.PRNGKey(60 + u), 0)
+        indices = jax.random.randint(key, (B,), 0, jnp.maximum(jring.size, 1))
+        jbatch = jreplay.replay_sample(jring, key, B)
+        jbatch["dones"] = jbatch["dones"].astype(jnp.float32)  # the program's input type
+        draws = draws_from_jax(jagent, jstates[-1], B)
+        jstate, jmetrics = jax_train_step(jagent, jstates[-1], jbatch)
+        jstates.append(jstate)
+        pending.append((torch.from_numpy(np.asarray(indices, np.int64)), draws))
+        state, metrics = agent.train_epoch(state, ring.state, 1)
+        assert not pending and agent.total_steps == u + 1
+        out.append(record(agent, state, metrics, jstate, jmetrics, draws, grads))
+    return agent, jstates, out
+
+
+def _close_dicts(got, module, jtree, group):
+    want = group_arrays(module, jtree, group)
+    assert set(got) == set(want), group
+    for name, value in got.items():
+        np.testing.assert_allclose(value, want[name], err_msg=f"{group} EMA {name}", **MODEL_TOL)
+
+
+def check_update(agent, jstates, out, step):
+    """Update ``step`` of ``out`` against the JAX agent's, by the rules
+    above: every metric, the state's fields (time importance, reward
+    normaliser, MINE running mean, return scale, log_alpha, the score EMA,
+    the slow critic, the EMA policy), and every partition's gradients and
+    parameters."""
+    got = out[step]
+    jstate = got["jstate"]
+    assert got["mine"] == (step == 0) and got["step"] == step + 1
+    assert set(got["metrics"]) == set(got["jmetrics"])
+    for name, value in got["jmetrics"].items():
+        np.testing.assert_allclose(got["metrics"][name], value, err_msg=name, **MODEL_TOL)
+    assert (got["metrics"]["epistemic_mi"] != 0) == (step == 0)
+
+    np.testing.assert_allclose(got["time_importance"], jstate.time_importance, **MODEL_TOL)
+    norm = jstate.reward_norm
+    np.testing.assert_allclose(got["reward_norm"], [norm.mean, norm.var, norm.count], **MODEL_TOL)
+    np.testing.assert_allclose(
+        got["scalars"], [jstate.epistemic_running_mean, jstate.return_scale, jstate.log_alpha],
+        err_msg="MINE running mean, return scale, log_alpha", **MODEL_TOL)
+    core = agent.core
+    _close_dicts(got["ema"], core.score_network, jstate.ema_score, "score")
+    _close_dicts(got["target_value"], core.value_network, jstate.target_value, "value")
+    assert (got["ema_policy"] is None) == (jstate.ema_policy is None)
+    if jstate.ema_policy is not None:
+        _close_dicts(got["ema_policy"], core.policy_network, jstate.ema_policy, "policy")
+
+    jparams = jax_by_name(agent, jstate.params)
+    for part in agent.PARTITIONS:
+        names = named(agent, part)
+        # gradients, as the first moments: 0.1 g after step 0
+        jmu = jax_by_name(agent, adam_mu(jstate.opt_states[part]))
+        mu_scale = max(float(np.abs(jmu[k]).max()) for k in names)
+        for k, m in zip(names, got["mu"][part]):
+            np.testing.assert_allclose(m, jmu[k], rtol=GRAD_RTOL, atol=GRAD_ATOL * mu_scale,
+                                       err_msg=f"{part} first moment {k}")
+            if step == 0:  # a clamp or a dead unit: exactly zero on both sides
+                assert (m[jmu[k] == 0] == 0).all(), (part, k)
+        # parameters: MODEL_TOL, or 2 lr a step where the sign of g is open
+        lr = got["lr"][part]
+        jgrads = [jax_grads(out, agent, part, s) for s in range(step + 1)]
+        pgrads = [port_grads(out, part, s) for s in range(step + 1)]
+        small = total = 0
+        for i, k in enumerate(names):
+            slack = 2 * lr * sum(
+                np.sign(gp[i]) != np.sign(gj[k]) for gj, gp in zip(jgrads, pgrads)
+            )
+            small += int(np.count_nonzero(slack))
+            total += slack.size
+            err = np.abs(got["params"][k] - jparams[k])
+            bound = MODEL_TOL["atol"] + MODEL_TOL["rtol"] * np.abs(jparams[k]) + slack
+            assert (err <= bound).all(), (part, k, float((err - bound).max()))
+        print(f"{part}: {small} of {total} elements under the sign rule")
+        assert small * 100 < total, (part, small, total)
