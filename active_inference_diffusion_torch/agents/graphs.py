@@ -35,7 +35,7 @@ and its draws instead of some 5,000 kernel launches from Python.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -51,6 +51,44 @@ def _tensors(tree) -> List[torch.Tensor]:
     if isinstance(tree, tuple):
         return [t for x in tree for t in _tensors(x)]
     return []
+
+
+def on_side_stream(fn: Callable, device: torch.device):
+    """``fn()`` on a new side stream that waits for the current one and
+    that the current one then waits for (the warm-up before a capture).
+    Returns what ``fn`` returns."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    try:
+        with torch.cuda.stream(side):
+            return fn()
+    finally:
+        torch.cuda.current_stream(device).wait_stream(side)
+
+
+def capture_counted(graph: torch.cuda.CUDAGraph, fn: Callable, pool=None
+                    ) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """Captures ``fn()`` into ``graph`` (in ``pool``). Returns what the
+    capture added to ``LAUNCHES`` and to ``PLAIN_RUNS``, which is what each
+    replay launches, and leaves both counts as they were before it."""
+    counts = (dict(LAUNCHES), dict(PLAIN_RUNS))
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            fn()
+    finally:
+        deltas = tuple({n: now[n] - before[n] for n in now if now[n] != before[n]}
+                       for now, before in zip((LAUNCHES, PLAIN_RUNS), counts))
+        LAUNCHES.update(counts[0])
+        PLAIN_RUNS.update(counts[1])
+    return deltas
+
+
+def count_replay(launch_deltas: Dict[str, int], plain_deltas: Dict[str, int]) -> None:
+    """Adds one replay's kernel launches and plain sweeps to the host counts."""
+    for name, n in launch_deltas.items():
+        LAUNCHES[name] += n
+    for name, n in plain_deltas.items():
+        PLAIN_RUNS[name] += n
 
 
 def _state_tensors(agent, state) -> List[torch.Tensor]:
@@ -133,10 +171,7 @@ class EpochGraphs:
             state.step += 1
             for name, n in run.step_deltas.items():
                 state.optimizers[name].count += n
-            for name, n in run.launch_deltas.items():
-                LAUNCHES[name] += n
-            for name, n in run.plain_deltas.items():
-                PLAIN_RUNS[name] += n
+            count_replay(run.launch_deltas, run.plain_deltas)
         return self.sums
 
     def _update(self, state, replay_state, indices, draws, sums) -> None:
@@ -159,47 +194,36 @@ class EpochGraphs:
         """Warm up one update of the current step's kind on a side stream,
         undo it, then capture it into the shared pool."""
         agent = self.agent
-        dev = agent.device
-        probe = torch.Generator(device=dev)
+        probe = torch.Generator(device=agent.device)
         probe.set_state(state.rng.get_state())
         indices, draws = agent.draw_update(dataclasses.replace(state, rng=probe), replay_state,
                                            batch_size)
         tensors = _state_tensors(agent, state)
         saved = [t.detach().clone() for t in tensors]
         host = (state.step, {name: opt.count for name, opt in state.optimizers.items()})
-        counts = (dict(LAUNCHES), dict(PLAIN_RUNS))
-        restored = False
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        try:
-            with torch.cuda.stream(side):
-                warm_state, metrics = agent.train_step_from_draws(
-                    dataclasses.replace(state), replay_sample(replay_state, indices), draws)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            steps = {name: opt.count - host[1][name] for name, opt in warm_state.optimizers.items()}
-            _restore(tensors, saved)
-            restored = True
-            if self.sums is None:
-                self.sums = {k: torch.zeros_like(v) for k, v in metrics.items()}
-            counts = (dict(LAUNCHES), dict(PLAIN_RUNS))  # the warm-up's launches stay counted
+
+        def reset_host() -> None:
             state.step = host[0]
             for name, opt in state.optimizers.items():
                 opt.count = host[1][name]
 
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self.pool):
-                self._update(state, replay_state, indices, draws, self.sums)
+        try:  # the warm-up's launches stay counted
+            warm_state, metrics = on_side_stream(lambda: agent.train_step_from_draws(
+                dataclasses.replace(state), replay_sample(replay_state, indices), draws),
+                agent.device)
+            steps = {name: opt.count - host[1][name] for name, opt in warm_state.optimizers.items()}
         finally:
-            if not restored:
-                _restore(tensors, saved)
-            state.step = host[0]
-            for name, opt in state.optimizers.items():
-                opt.count = host[1][name]
-            captured = ({n: LAUNCHES[n] - counts[0][n] for n in LAUNCHES},
-                        {n: PLAIN_RUNS[n] - counts[1][n] for n in PLAIN_RUNS})
-            LAUNCHES.update(counts[0])
-            PLAIN_RUNS.update(counts[1])
+            _restore(tensors, saved)
+            reset_host()
+        if self.sums is None:
+            self.sums = {k: torch.zeros_like(v) for k, v in metrics.items()}
+        graph = torch.cuda.CUDAGraph()
+        try:
+            launch_deltas, plain_deltas = capture_counted(
+                graph, lambda: self._update(state, replay_state, indices, draws, self.sums),
+                self.pool)
+        finally:
+            reset_host()
         self.captures += 1
         return _Captured(graph, indices, draws, {n: k for n, k in steps.items() if k},
-                         {n: k for n, k in captured[0].items() if k},
-                         {n: k for n, k in captured[1].items() if k})
+                         launch_deltas, plain_deltas)

@@ -11,8 +11,10 @@ device replay ring, each update a replayed CUDA graph) through the float32
 ones, runs the widths beyond the kernels' 48 MiB of trunk weights through
 the plain sweep on the card, drives the learning presets
 (``*_state_dreamer.yaml``: posterior beliefs, the imagined actor-critic,
-no sweep) through ``train_step``, ``train_epoch`` and ``act``, and times
-them. Any failed phase raises, so the script exits non-zero;
+no sweep) through ``train_step``, ``train_epoch`` and ``act``, drives the
+fused collect+train loop (``train_fused``: device envs, the planar engine,
+each env step a replayed CUDA graph with the sweep kernel inside it), and
+times them. Any failed phase raises, so the script exits non-zero;
 without a CUDA device it exits non-zero before printing a result. It
 imports no JAX and nothing of the JAX package.
 
@@ -34,7 +36,10 @@ Phases:
    (B=256 and 8); v1-f32 at the flagship width, B=512 (the train step's
    belief sweep); the streamed plan at the config's default width (latent
    128, hidden 512) in bf16 (v1 B=8, v2 B=37, K=100) and in f32 at hidden
-   300 (v1 B=256, v2 B=512); hidden 96, padded to 128 (f32, B=8 and 37).
+   300 (v1 B=256, v2 B=512); hidden 96, padded to 128 (f32, B=8 and 37);
+   v1-f32 at the HalfCheetah learning preset's width, B=16, K=15 (C4), and
+   at the fused collect's (latent 16, hidden 64, 2 blocks, K=10: B=1024,
+   its warm start's K=3, B=512, and the eval's B=64).
 4. main paths, each with every launch count set to 0 just before it and
    read just after; actions finite, (B, A), within [-1, 1]; exactly one
    launch per call of the path's kernel and none of another; eval actions
@@ -68,9 +73,8 @@ Phases:
    time importance, reward normaliser and MINE running mean within the
    train check's tolerances (the largest difference printed), one sweep
    launch per replay and per capture's warm-up, and ``act`` after the
-   epoch equal to the eager twin's; for v1 also ten replays under
-   torch.profiler (one sweep kernel and one graph launch each in the
-   trace) and an epoch of 300 updates in chunks of 150 and 150.
+   epoch equal to the eager twin's; for v1 also an epoch of 300 updates
+   in chunks of 150 and 150.
    g. the learning presets (``dreamer_phase``), the three
    ``*_state_dreamer.yaml`` loaded from their files at their published
    widths (batch 128, latent 32, hidden 128, 6 blocks, 5 dynamics members,
@@ -88,6 +92,28 @@ Phases:
    posterior acting off and ``use_ema_for_act`` on acts with the state's
    score EMA (one v1-f32 sweep launch), against the CPU twin and unlike the
    live network.
+   h. (run after phase 5's other times) the fused collect+train loop
+   (``fused_phase``), each run set up by
+   ``train_fused.build_run`` as ``python -m
+   active_inference_diffusion_torch.train_fused`` sets it up, the Flax
+   initialisers from a seed and the score network ``randomize``d. Pendulum-v1
+   at the entry point's defaults (latent 16, hidden 64, 2 blocks, K=10;
+   bench.py:740-841's shape), 1024 envs x 64 steps, then with warm starts
+   at K=3: two collects each through ``collect_and_store`` (one captured env
+   step replayed per step, the v1-f32 sweep kernel inside it), exactly one
+   sweep launch per env step and no plain run, the transitions and physics
+   finite, the first collect's steps 0-3 against the eager loop on the card
+   and steps 0-1 against the CPU twin, on the same draws; its
+   ``fused_eval`` of 64 envs x one 200-step episode, one launch a step.
+   HopperPlanar-v0 at 512 x 32 (bench.py:860-890) and Walker2dPlanar-v0 at
+   64 x 16 with the same checks. halfcheetah_planar_fused.yaml at its
+   published widths (latent 32, hidden 128, 6 blocks, K=10, batch 128, 5
+   dynamics members, posterior acting) in the README's loop shape: 3
+   ``train_fused.iterate`` calls of 64 envs x 16 steps and 64
+   ``train_epoch`` updates (graph replays) from an empty ring, metrics
+   finite, the ring's size and position equal to the env steps stored, no
+   sweep; then one ``fused_eval`` of 64 envs cut to 100 of its 1000 steps,
+   to keep the script within its time.
 5. times: each kernel against its plain version at its main path's shape
    (CUDA events), and at the other shapes of the timed list; for every row
    the plain version captured once in a CUDA graph and replayed
@@ -99,19 +125,29 @@ Phases:
    ``act`` latency (host clock, synchronised) at the flagship (batch 1,
    256) and the humanoid config (batch 8, 256), eval and collect.
    ``train_step`` at the flagship, batch 256, v1 and v2: median of 10
-   (host clock, synchronised) after 3 warm-up steps, then 5 steps under
-   torch.profiler (device time, the sweep's share, host time per phase).
+   (host clock, synchronised) after 3 warm-up steps.
    ``train_epoch`` at the flagship, v1 (``epoch_times_phase``): the eager
    loop against graph replays, 256 updates each in blocks of 16, in turns
-   (eager, graph, graph, eager): median ms per update and updates/s; then
-   ten replays under torch.profiler: device time and busy share, launches
-   per update outside the graph, the sweep's device time.
+   (eager, graph, graph, eager): median ms per update and updates/s.
    The HalfCheetah learning preset (``dreamer_times_phase``): ``act``
    latency at batch 16 and 256, eval and collect; ``train_epoch`` at batch
    128, the eager loop against graph replays, 128 updates an arm in blocks
-   of 16, in turns; ten replays and three eager updates under
-   torch.profiler (device time, busy share, kernels, launches outside the
-   graph, host ms per phase).
+   of 16, in turns.
+   The fused loop (``fused_times_phase``): env steps/s of each collect of
+   4h (its second collect, graph replays only), the capture's seconds; the
+   HalfCheetah preset's iterations (env steps/s, the collect alone,
+   updates/s).
+   Under torch.profiler, in a process of its own (``profiled_phase``,
+   ``python3 chip_smoke.py --profiled``, started here; the process of the
+   other phases never starts the profiler): ten replays of the flagship's
+   epoch (one sweep kernel and one graph launch each in the trace; device
+   time, busy share, launches outside the graph), 5 ``train_step`` calls
+   per variant (the sweep's share, host time per phase), ten replays and
+   three eager updates of the HalfCheetah learning preset (no sweep
+   kernel), one replayed env step of each collect of 4h (its kernels; one
+   sweep kernel where the sweep acts, none in the HalfCheetah preset's
+   step) and one collect of each Pendulum run (one sweep kernel an env
+   step, the sweep's share of the device time, the busy share).
 6. the kernel summary line, the card line, and the result line.
 """
 
@@ -123,6 +159,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -166,6 +203,14 @@ PARITY_SHAPES = [
     # float32 streamed: hidden 300 padded to 320, one wave and two of clusters
     ("denoise_sweep_v1_f32", "h300", 256, 32, 300, 6, 25, 25),
     ("denoise_sweep_v2_f32", "h300_b512", 512, 32, 300, 6, 25, 10),
+    # the HalfCheetah learning preset's width with use_ema_for_act (C4), B=16
+    ("denoise_sweep_v1_f32", "dreamer_c4", 16, 32, 128, 6, 15, 15),
+    # the fused collect (train_fused's defaults): Pendulum's 1024 envs, the
+    # warm start's K=3, HopperPlanar's 512 envs, the eval's 64
+    ("denoise_sweep_v1_f32", "fused_pendulum", 1024, 16, 64, 2, 10, 10),
+    ("denoise_sweep_v1_f32", "fused_pendulum_warm", 1024, 16, 64, 2, 10, 3),
+    ("denoise_sweep_v1_f32", "fused_hopper", 512, 16, 64, 2, 10, 10),
+    ("denoise_sweep_v1_f32", "fused_eval", 64, 16, 64, 2, 10, 10),
 ]
 # The widths C1 found refused, at the config's 6 blocks. (latent, hidden,
 # compute_dtype); batch 8, K=100 (the halfcheetah_state.yaml schedule; the
@@ -218,6 +263,24 @@ DREAMER_SHAPES = {"halfcheetah": (FLAGSHIP_OBS, FLAGSHIP_ACT), "hopper": (11, 3)
 DREAMER_GATE_STEP = 5
 DREAMER_ACT_BATCHES = (16, 256)
 DREAMER_TIMED = 128
+# The fused collect+train loop (train_fused, python -m
+# active_inference_diffusion_torch.train_fused): bench.py's shapes. Pendulum-v1
+# at the entry point's flag defaults (latent 16, hidden 64, 2 blocks, K=10,
+# bench.py:740-841), 1024 envs x 64 steps, then warm starts at K=3; its eval,
+# 64 envs x one 200-step episode; HopperPlanar-v0 at 512 x 32 (bench.py:860-890)
+# and Walker2dPlanar-v0 at 64 x 16 with the same widths;
+# halfcheetah_planar_fused.yaml at its published widths in the README's loop
+# (64 envs, 16 steps and 64 train_epoch updates an iteration), 3 iterations
+# from an empty ring and an eval of 64 envs cut to 100 of its 1000 steps.
+# Graph replays against the eager loop over steps 0-3 (the same kernels: equal
+# up to rounding); the card against the CPU twin over steps 0-1: the sweep's
+# SWEEP_TOL carried through the policy head, the exploration noise and one or
+# two env steps of the dynamics.
+FUSED_PENDULUM, FUSED_WARM_STEPS, FUSED_EVAL_ENVS = (1024, 64), 3, 64
+FUSED_HOPPER, FUSED_WALKER = (512, 32), (64, 16)
+FUSED_CHEETAH = dict(envs=64, steps=16, updates=64, iterations=3, eval_envs=64, eval_steps=100)
+FUSED_GRAPH_STEPS, FUSED_TWIN_STEPS = 4, 2
+FUSED_GRAPH_TOL, FUSED_TWIN_TOL = (1e-6, 1e-6), (1e-3, 1e-3)
 # Kernel vs plain sweep, elementwise |kernel - plain| <= atol + rtol |plain|.
 # float32: another summation order, compounded over up to 100 dependent
 # steps of 6 blocks. bfloat16 weights: the same rounding sites on both
@@ -237,6 +300,8 @@ TIMED_CALLS, WARMUP_CALLS = 25, 3
 # bfloat16: the bf16 tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+# Phase 5's profiled replays run in a process of their own (profiled_phase).
+PROFILED_FLAG, PROFILED_TIMEOUT_S, PROFILE_TRIES = "--profiled", 300, 3
 REPLACES = {
     "denoise_sweep_v1_f32": "active_inference_diffusion_tpu/ops/denoise.py:159",
     "denoise_sweep_v1_bf16": "active_inference_diffusion_tpu/ops/denoise.py:159",
@@ -540,32 +605,49 @@ def describe_train_comparison(worst: dict) -> str:
                   for part, row in worst.items() if part not in ("metrics", "state"))
 
 
-def profile_ms(fn, calls: int, names: str) -> dict:
-    """``calls`` runs of ``fn`` under torch.profiler: host ms per call, the
-    device ms per call summed over kernels, the share of it spent in
-    kernels whose name holds ``names``, the kernel count, and the host ms
-    per call of each ``train_step/<phase>`` range."""
+def traced(fn, calls: int) -> tuple:
+    """``calls`` runs of ``fn`` in one torch.profiler session: (host ms per
+    call, the session's events). A trace that holds no device event at all
+    saw nothing of what ran (one session in 56 on an H100): the
+    session is run again, ``PROFILE_TRIES`` times at most in all."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        host = (time.perf_counter() - t0) * 1e3 / calls
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3 / calls
+        events = prof.events()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("train_step/") for e in events):
+            return host, events
+        log("[5 profiled] the profiler's trace held no device event; the session again")
+    raise RuntimeError(f"no device event in the profiler's trace in {PROFILE_TRIES} sessions")
+
+
+def profile_ms(fn, calls: int, names: str) -> dict:
+    """``calls`` runs of ``fn`` under torch.profiler (``traced``): host ms
+    per call, the device ms per call summed over kernels, the share of it
+    spent in kernels whose name holds ``names`` and how many such kernels
+    the trace holds, the kernel count, and the host ms per call of each
+    ``train_step/<phase>`` range."""
+    host, events = traced(fn, calls)
     # the phases' ranges appear twice: on the host, and as annotations on the device's timeline
-    ranges = [e for e in prof.events() if e.name.startswith("train_step/")]
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+    ranges = [e for e in events if e.name.startswith("train_step/")]
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.name.startswith("train_step/")]
     device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
-    named = sum(e.time_range.elapsed_us() for e in kernels if names in e.name) / 1e3 / calls
+    matched = [e for e in kernels if names in e.name]
+    named = sum(e.time_range.elapsed_us() for e in matched) / 1e3 / calls
     phases: dict = {}
     for e in ranges:
         if e.device_type == torch.autograd.DeviceType.CPU:
             key = e.name.split("/", 1)[1]
             phases[key] = phases.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
-    return dict(host_ms=host, device_ms=device, named_ms=named,
+    return dict(host_ms=host, device_ms=device, named_ms=named, named_kernels=len(matched),
                 kernels_per_call=len(kernels) / calls, phases_host_ms=phases)
 
 
@@ -659,16 +741,15 @@ def profile_epoch(agent, state, ring_state, updates: int) -> tuple:
     sweep kernels in the device trace, the graph launches, the host's
     launches outside the graphs per update (kernels, copies and fills), the
     device ms per update summed over its kernels, the sweep's, and the host
-    ms per update. Returns (state, that dict)."""
-    from torch.profiler import ProfilerActivity, profile
+    ms per update (``traced``). Returns (state, that dict)."""
+    metrics = {}
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def epoch():
+        nonlocal state, metrics
         state, metrics = agent.train_epoch(state, ring_state, updates)
-        torch.cuda.synchronize()
-        host = (time.perf_counter() - t0) * 1e3 / updates
-    events = prof.events()
+
+    host, events = traced(epoch, 1)
+    host /= updates
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     runtime = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     sweeps = [e for e in device if "denoise_sweep" in e.name]
@@ -797,18 +878,6 @@ def epoch_phase(dev, launches: dict) -> tuple:
         launches[kernel] += sum(LAUNCHES.values())  # the acts included
 
         if variant == "v1":
-            # one sweep kernel per replayed update, from the profiler's device trace
-            for name in KERNELS:
-                LAUNCHES[name] = 0
-            graph_state, prof = profile_epoch(graph, graph_state, ring.state, EPOCH_PROFILED)
-            log(f"[4 epoch] flagship v1 profiled train_epoch of {EPOCH_PROFILED} updates: "
-                f"{prof['sweep_kernels']} sweep kernels and {prof['graph_launches']} graph "
-                f"launches in the trace, launches counted {LAUNCHES[kernel]}")
-            if (prof["sweep_kernels"] != EPOCH_PROFILED or prof["graph_launches"] != EPOCH_PROFILED
-                    or LAUNCHES[kernel] != EPOCH_PROFILED or not prof["metrics_finite"]):
-                raise RuntimeError("epoch: the profiler does not see one sweep kernel and one "
-                                   "graph launch per replayed update")
-            launches[kernel] += LAUNCHES[kernel]
             # a chunked epoch: 300 updates in chunks of 150 and 150
             from active_inference_diffusion_torch.agents.base import epoch_chunks
 
@@ -833,30 +902,18 @@ def epoch_phase(dev, launches: dict) -> tuple:
     return ring, epoch_pairs
 
 
-def epoch_times_phase(ring, epoch_pairs: dict, launches: dict, card: str) -> None:
+def epoch_times_phase(ring, epoch_pairs: dict, card: str) -> None:
     """Phase 5, ``train_epoch``: the eager loop against graph replays at
-    the flagship, v1, timed in turns and profiled; adds the launches to
-    ``launches``."""
-    from active_inference_diffusion_torch.ops.denoise import KERNELS, LAUNCHES
-
+    the flagship, v1, timed in turns (``profiled_phase`` profiles it)."""
     eager, eager_state, graph, graph_state = epoch_pairs["v1"]
-    for name in KERNELS:
-        LAUNCHES[name] = 0
     eager_state, graph_state, times = epoch_times(eager, eager_state, graph, graph_state,
                                                   ring.state)
-    graph_state, prof = profile_epoch(graph, graph_state, ring.state, EPOCH_PROFILED)
-    launches["denoise_sweep_v1_f32"] += LAUNCHES["denoise_sweep_v1_f32"]
     log(f"[5 times] train_epoch flagship v1-f32 B={FLAGSHIP['batch']}, {EPOCH_TIMED} updates an "
         f"arm in blocks of {EPOCH_BLOCK}, in turns (eager, graph, graph, eager): eager loop median "
         f"{times['eager']['median_ms']:.4f} ms an update, {times['eager']['updates_per_s']:.3f} "
         f"updates/s; graph replays median {times['graph']['median_ms']:.4f} ms an update, "
         f"{times['graph']['updates_per_s']:.3f} updates/s "
-        f"({times['graph']['updates_per_s'] / times['eager']['updates_per_s']:.2f}x); "
-        f"profiled over {EPOCH_PROFILED} replays: host {prof['host_ms']:.4f} ms, device "
-        f"{prof['device_ms']:.4f} ms an update, device busy "
-        f"{prof['device_ms'] / prof['host_ms']:.3%}, "
-        f"{prof['launches_outside']:.1f} launches an update outside the graph (kernels, copies, "
-        f"fills), sweep kernel {prof['sweep_ms']:.4f} ms an update | {card}")
+        f"({times['graph']['updates_per_s'] / times['eager']['updates_per_s']:.2f}x) | {card}")
 
 
 def dreamer_agent(preset: str, device, **knobs):
@@ -864,7 +921,6 @@ def dreamer_agent(preset: str, device, **knobs):
     the port's ``load_yaml_config``, ``knobs`` set on its config, at the
     environment's dimensions on ``device``: the Flax initialisers from seed
     400, then the score network ``randomize``d (seed 401)."""
-    from pathlib import Path
 
     from active_inference_diffusion_torch import DiffusionStateAgent, load_yaml_config
 
@@ -1112,8 +1168,8 @@ def dreamer_phase(dev, launches: dict) -> dict:
 
 def dreamer_times_phase(dreamer: dict, card: str) -> None:
     """Phase 5, the HalfCheetah learning preset: ``act`` latency at 16 and
-    256; ``train_epoch``, the eager loop against graph replays in turns;
-    ten replays and three eager updates under torch.profiler."""
+    256; ``train_epoch``, the eager loop against graph replays in turns
+    (``profiled_phase`` profiles it)."""
     ring = dreamer["ring"]
     eager, eager_state, graph, graph_state, _ = dreamer["pair"]
     obs_dim = DREAMER_SHAPES["halfcheetah"][0]
@@ -1133,31 +1189,433 @@ def dreamer_times_phase(dreamer: dict, card: str) -> None:
     batch = graph.config.batch_size
     eager_state, graph_state, times = epoch_times(eager, eager_state, graph, graph_state,
                                                   ring.state, updates=DREAMER_TIMED)
-    graph_state, prof = profile_epoch(graph, graph_state, ring.state, EPOCH_PROFILED)
-
-    def eager_call():
-        nonlocal eager_state
-        eager_state, _ = eager_updates(eager, eager_state, ring.state, 1)
-
-    eager_prof = profile_ms(eager_call, 3, "denoise_sweep")
     log(f"[5 times] train_epoch halfcheetah_state_dreamer B={batch}, {DREAMER_TIMED} updates an "
         f"arm in blocks of {EPOCH_BLOCK}, in turns (eager, graph, graph, eager): eager loop "
         f"median {times['eager']['median_ms']:.4f} ms an update, "
         f"{times['eager']['updates_per_s']:.3f} updates/s; graph replays median "
         f"{times['graph']['median_ms']:.4f} ms an update, {times['graph']['updates_per_s']:.3f} "
-        f"updates/s ({times['graph']['updates_per_s'] / times['eager']['updates_per_s']:.2f}x); "
-        f"profiled over {EPOCH_PROFILED} replays: host {prof['host_ms']:.4f} ms, device "
+        f"updates/s ({times['graph']['updates_per_s'] / times['eager']['updates_per_s']:.2f}x) "
+        f"| {card}")
+
+
+
+# -- 4h. the fused collect+train loop (train_fused) ---------------------------
+
+
+def fused_run(*argv, seed: int = 500):
+    """``train_fused.build_run`` on the card for ``argv`` (the entry
+    point's own set-up), the Flax initialisers from ``seed``, then the score
+    network ``randomize``d (seed + 1) and a fresh train state."""
+    from active_inference_diffusion_torch import train_fused
+
+    run = train_fused.build_run(train_fused.parse_args(
+        ["--device", "cuda", "--seed", str(seed), *argv]))
+    randomize(run.agent.core.score_network, seed=seed + 1)
+    run.state = run.agent.new_train_state(seed + 2)
+    return run
+
+
+def _cpu_collect_draws(draws):
+    from active_inference_diffusion_torch.core.active_inference import tree_to
+
+    return draws._replace(steps=[tree_to(step, "cpu") for step in draws.steps])
+
+
+def _twin_policy(run, twin, env):
+    """The run's collect policy rebuilt on the CPU twin's core and env."""
+    from active_inference_diffusion_torch.envs import device_envs as de
+
+    cfg, args = run.agent.config, run.args
+    if args.warm_start_steps:
+        inner = de.make_warm_rollout_policy(twin.core, env, num_steps=args.warm_start_steps,
+                                            deterministic_beliefs=cfg.deterministic_beliefs)
+    else:
+        inner = de.make_rollout_policy(twin.core, env, act_from_posterior=cfg.act_from_posterior,
+                                       deterministic_beliefs=cfg.deterministic_beliefs)
+    return de.ExplorationNoise(inner, env, run.collector.policy.eps.cpu())
+
+
+def transitions_err(got, want, steps: int, rtol: float, atol: float) -> float:
+    """The largest |got - want| / (atol + rtol |want|) over the first
+    ``steps`` steps of two ``Transitions``; inf where a done differs."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g[:steps].cpu(), w[:steps].cpu()
+        if g.dtype == torch.bool:
+            if not torch.equal(g, w):
+                return float("inf")
+            continue
+        g, w = g.double(), w.double()
+        worst = max(worst, float(((g - w).abs() / (atol + rtol * w.abs())).max()))
+    return worst
+
+
+def replay_profile(collector) -> dict:
+    """One more replay of a collect's captured env step (its step index set
+    back to 0, so it writes the first step's slot) under torch.profiler."""
+    collector.t.zero_()
+    return profile_ms(collector.step_graph.graph.replay, 1, "denoise_sweep")
+
+
+def fused_collect_check(dev, label: str, run, sweep: bool) -> dict:
+    """Two collects of the run (``train_fused.collect_and_store``: the graph
+    of one env step replayed, the transitions into the ring), the counts set
+    to 0 just before and read just after; then, on the first collect's
+    draws, the eager loop on the card over its first ``FUSED_GRAPH_STEPS``
+    steps and the CPU twin over its first ``FUSED_TWIN_STEPS``. Returns the
+    launches, the second collect's env steps/s, the capture's seconds and
+    the run, which phase 5 profiles."""
+    from active_inference_diffusion_torch import train_fused
+    from active_inference_diffusion_torch.envs import device_envs as de
+    from active_inference_diffusion_torch.ops.denoise import KERNELS, LAUNCHES, PLAIN_RUNS
+
+    n, steps = run.args.num_envs, run.args.steps_per_iter
+    kernel = "denoise_sweep_v1_f32"
+    eps = train_fused.exploration_eps(run.agent.training_config, 0)
+    first_states = de.EnvState(*[x.clone() for x in run.env_states.tensors()])
+    first_p = None if run.policy_state is None else run.policy_state.clone()
+    snapshot = run.generator.get_state()
+    for name in KERNELS:
+        LAUNCHES[name] = PLAIN_RUNS[name] = 0
+    seconds = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.env_states, run.policy_state, _ = train_fused.collect_and_store(
+            run.agent, run.state, run.collector, run.replay, run.env_states, run.policy_state,
+            run.generator, eps)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if i == 0:
+            first = de.Transitions(*[x.clone() for x in run.collector.out])
+    counts = (dict(LAUNCHES), dict(PLAIN_RUNS))
+    zero = {name: 0 for name in KERNELS}
+    want = ({**zero, kernel: 2 * steps} if sweep else zero, zero)
+    if counts != want:
+        raise RuntimeError(f"{label}: expected launches {want[0]} and no plain run, got "
+                           f"launches {counts[0]}, plain runs {counts[1]}")
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in first) and bool(
+        torch.isfinite(run.env_states.physics).all())
+    if not finite:
+        raise RuntimeError(f"{label}: non-finite transitions or physics")
+
+    gen = torch.Generator(device=dev)
+    gen.set_state(snapshot)
+    compared = min(FUSED_GRAPH_STEPS, steps)
+    draws = de.draw_collect(run.env, run.collector.policy, n, compared, gen, reset=False)
+    policy = run.collector.policy
+    policy.eps.fill_(eps)
+    eager, _, _ = de.fused_collect_stateful(
+        run.env, policy if policy.stateful else de.stateful(policy), draws, first_p, first_states)
+    graph_err = transitions_err(first, eager, compared, *FUSED_GRAPH_TOL)
+    twin = twin_of(run.agent)
+    cpu_env = de.make_device_env(run.env_name, device="cpu")
+    twin_policy = _twin_policy(run, twin, cpu_env)
+    cpu_draws = _cpu_collect_draws(draws._replace(steps=draws.steps[:FUSED_TWIN_STEPS]))
+    cpu, _, _ = de.fused_collect_stateful(
+        cpu_env, twin_policy if twin_policy.stateful else de.stateful(twin_policy), cpu_draws,
+        None if first_p is None else first_p.cpu(),
+        de.EnvState(*[x.cpu() for x in first_states.tensors()]))
+    twin_err = transitions_err(first, cpu, FUSED_TWIN_STEPS, *FUSED_TWIN_TOL)
+    graph = run.collector.step_graph
+    log(f"[4 fused] {label}: {n} envs x {steps} steps, two collects of graph replays "
+        f"(capture {graph.capture_seconds:.2f} s), launches "
+        f"{counts[0][kernel]} of {kernel} ({'one' if sweep else 'none'} per env step), plain "
+        f"runs {sum(counts[1].values())}; transitions and physics finite; graph vs the eager "
+        f"loop over steps 0-{compared - 1}: err/tol {graph_err:.3e} (rtol "
+        f"{FUSED_GRAPH_TOL[0]:g}, atol {FUSED_GRAPH_TOL[1]:g}); card vs CPU twin over steps "
+        f"0-{FUSED_TWIN_STEPS - 1}: err/tol {twin_err:.3e} (rtol {FUSED_TWIN_TOL[0]:g}, atol "
+        f"{FUSED_TWIN_TOL[1]:g}); ring size {run.replay.host_size}")
+    if graph_err > 1.0 or twin_err > 1.0:
+        raise RuntimeError(f"{label}: the graph collect disagrees with the eager loop or the CPU")
+    return dict(launches=counts[0][kernel], steps_per_s=n * steps / seconds[1],
+                first_s=seconds[0], capture_s=graph.capture_seconds, run=run)
+
+
+def fused_phase(dev, launches: dict) -> dict:
+    """Phase 4h: the fused collect+train loop on the card (see ``main``).
+    Adds the sweep launches of its main paths to ``launches``; returns what
+    phase 5 reports."""
+    from active_inference_diffusion_torch import train_fused
+    from active_inference_diffusion_torch.envs.collect_graph import EvalGraph
+    from active_inference_diffusion_torch.envs.device_envs import make_rollout_policy
+    from active_inference_diffusion_torch.ops.denoise import KERNELS, LAUNCHES, PLAIN_RUNS
+
+    out = {}
+    t0 = time.perf_counter()
+    kernel = "denoise_sweep_v1_f32"
+    envs, steps = FUSED_PENDULUM
+    loop = ["--num-envs", str(envs), "--steps-per-iter", str(steps)]
+    # a. Pendulum-v1 with the sweep acting (the entry point's defaults), then warm starts
+    for label, extra in (("Pendulum-v1 sweep, K=10", []),
+                         (f"Pendulum-v1 warm start, K={FUSED_WARM_STEPS}",
+                          ["--warm-start-steps", str(FUSED_WARM_STEPS)])):
+        run = fused_run(*loop, *extra, "--eval-every", "1", "--eval-envs", str(FUSED_EVAL_ENVS))
+        out[label] = fused_collect_check(dev, label, run, sweep=True)
+        launches[kernel] += out[label]["launches"]
+    # the eval rollout: one deterministic episode per eval env
+    for name in KERNELS:
+        LAUNCHES[name] = PLAIN_RUNS[name] = 0
+    te = time.perf_counter()
+    ret = float(train_fused.eval_return(run.agent, run.state, run.evaluator, run.generator))
+    eval_s = time.perf_counter() - te
+    counts = (dict(LAUNCHES), dict(PLAIN_RUNS))
+    eval_steps = run.evaluator.num_steps
+    log(f"[4 fused] Pendulum-v1 fused_eval, {FUSED_EVAL_ENVS} envs x {eval_steps} steps "
+        f"(graph replays, capture {run.evaluator.step_graph.capture_seconds:.2f} s): mean "
+        f"return {ret:.4f} in {eval_s:.3f} s with the capture, launches {counts[0][kernel]} of "
+        f"{kernel}, plain runs {sum(counts[1].values())}")
+    if counts[0] != {**{n: 0 for n in KERNELS}, kernel: eval_steps} or any(counts[1].values()) \
+            or not np.isfinite(ret):
+        raise RuntimeError("Pendulum eval: expected one sweep launch per step and a finite return")
+    launches[kernel] += eval_steps
+    # b. the planar engine with the sweep acting
+    for label, (name, (envs, steps)) in (("HopperPlanar-v0", ("HopperPlanar-v0", FUSED_HOPPER)),
+                                         ("Walker2dPlanar-v0",
+                                          ("Walker2dPlanar-v0", FUSED_WALKER))):
+        run = fused_run("--env", name, "--num-envs", str(envs), "--steps-per-iter", str(steps))
+        out[label] = fused_collect_check(dev, label, run, sweep=True)
+        launches[kernel] += out[label]["launches"]
+    # c. halfcheetah_planar_fused.yaml at its published widths, the README's loop shape
+    c = FUSED_CHEETAH
+    path = Path(__file__).resolve().parent / "examples" / "configs" / "halfcheetah_planar_fused.yaml"
+    run = fused_run("--config", str(path), "--num-envs", str(c["envs"]), "--steps-per-iter",
+                    str(c["steps"]), "--updates-per-iter", str(c["updates"]), "--iterations",
+                    str(c["iterations"]), "--train-epoch")
+    cfg = run.agent.config
+    for name in KERNELS:
+        LAUNCHES[name] = PLAIN_RUNS[name] = 0
+    logs = []
+    for it in range(c["iterations"]):
+        logs.append(train_fused.iterate(run, it))
+    evaluator = EvalGraph(run.env, make_rollout_policy(run.agent.core, run.env,
+                                                       deterministic=True, act_from_posterior=True),
+                          c["eval_envs"], c["eval_steps"])
+    te = time.perf_counter()
+    ret = float(train_fused.eval_return(run.agent, run.state, evaluator, run.generator))
+    eval_s = time.perf_counter() - te
+    counts = (sum(LAUNCHES.values()), sum(PLAIN_RUNS.values()))
+    stored = c["iterations"] * c["envs"] * c["steps"]
+    ring = run.replay
+    finite = all(np.isfinite(v) for lg in logs for v in lg.values()) and np.isfinite(ret)
+    log(f"[4 fused] halfcheetah_planar_fused.yaml B={cfg.batch_size} D={cfg.latent_dim} "
+        f"H={cfg.hidden_dim} L={cfg.score_num_layers} K={cfg.diffusion.num_diffusion_steps} "
+        f"ensemble {cfg.num_dynamics_ensemble}, posterior acting: {c['iterations']} iterations of "
+        f"{c['envs']} envs x {c['steps']} steps and {c['updates']} train_epoch updates (graph "
+        f"replays) from an empty ring; ring size {ring.host_size} pos {ring.host_pos} (device "
+        f"{int(ring.size)} / {int(ring.pos)}) for {stored} env steps stored; sweeps launched "
+        f"{counts[0]}, plain {counts[1]}; collect graph capture "
+        f"{run.collector.step_graph.capture_seconds:.2f} s; fused_eval {c['eval_envs']} envs "
+        f"cut to {c['eval_steps']} of "
+        f"{run.env.max_episode_steps} steps (the script's time): mean return {ret:.4f} in {eval_s:.2f} s "
+        f"(capture {evaluator.step_graph.capture_seconds:.2f} s); last metrics "
+        + json.dumps({k: round(v, 6) for k, v in logs[-1].items()}))
+    if not finite or (ring.host_size, ring.host_pos, int(ring.size), int(ring.pos)) != (
+            stored, stored, stored, stored) or counts != (0, 0):
+        raise RuntimeError("halfcheetah_planar_fused: non-finite metrics, a ring that does not "
+                           "hold the env steps stored, or a sweep")
+    out["cheetah"] = dict(logs=logs, eval_s=eval_s, run=run, evaluator=evaluator,
+                          capture_s=run.collector.step_graph.capture_seconds)
+    log(f"[4 fused] phase 4h in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def fused_times_phase(fused: dict, card: str) -> None:
+    """Phase 5, the fused loop: env steps/s of each collect of 4h (the
+    second collect, graph replays only) and the HalfCheetah preset's
+    iterations (``profiled_phase`` profiles them)."""
+    for label in ("Pendulum-v1 sweep, K=10", f"Pendulum-v1 warm start, K={FUSED_WARM_STEPS}",
+                  "HopperPlanar-v0", "Walker2dPlanar-v0"):
+        r = fused[label]
+        log(f"[5 times] fused collect {label}: {r['steps_per_s']:.1f} env steps/s (a collect of "
+            f"graph replays into the ring); first collect with the capture {r['first_s']:.3f} s, "
+            f"capture {r['capture_s']:.3f} s | {card}")
+    cheetah = fused["cheetah"]
+    for it, lg in enumerate(cheetah["logs"]):
+        log(f"[5 times] fused iteration {it} halfcheetah_planar_fused.yaml ({FUSED_CHEETAH['envs']} "
+            f"envs x {FUSED_CHEETAH['steps']} steps, {FUSED_CHEETAH['updates']} train_epoch "
+            f"updates): {lg['fused/env_steps_per_sec']:.2f} env steps/s, collect "
+            f"alone {lg['fused/collect_env_steps_per_sec']:.2f} env steps/s, "
+            f"{lg.get('fused/updates_per_sec', float('nan')):.3f} updates/s"
+            f"{' (with the captures)' if it == 0 else ''} | {card}")
+    log(f"[5 times] halfcheetah_planar_fused.yaml: the collect's step captured in "
+        f"{cheetah['capture_s']:.3f} s; eval of {FUSED_CHEETAH['eval_steps']} steps "
+        f"{cheetah['eval_s']:.3f} s | {card}")
+
+
+def profiled_phase(dev, card: str) -> None:
+    """Phase 5's replays under torch.profiler, run by ``profiled_main`` in a
+    process of its own. In the process of phases 1-5, where the profiler
+    ran between the captures of many graphs, a profiled graph replay
+    sometimes died of a segfault, cause unknown (PERF.md, section
+    7). Here every graph is captured before the first profiler session,
+    none is captured during one, and all stay alive to the end.
+
+    The flagship's ``train_epoch``, v1: ten replays, one sweep kernel and
+    one graph launch each in the trace, device time, busy share, launches
+    outside the graph. ``train_step`` at the flagship, v1 and v2, eager: 5
+    steps each (device time, the sweep's share, host time per phase). The
+    HalfCheetah learning preset's ``train_epoch``: ten replays (no sweep
+    kernel in the trace) and three eager updates. The fused loop: one
+    replayed env step of each collect of 4h (its kernels, the graph's
+    nodes; one sweep kernel in it where the policy acts by the sweep, none
+    in the HalfCheetah preset's), one collect of each Pendulum run (one
+    sweep kernel an env step, the sweep's share of the device time, the
+    busy share)."""
+    from active_inference_diffusion_torch import train_fused
+    from active_inference_diffusion_torch.ops.denoise import KERNELS, LAUNCHES
+
+    kernel = "denoise_sweep_v1_f32"
+    t0 = time.perf_counter()
+    # -- every graph captured first
+    ring, _ = fill_ring(dev)
+    flagship = flagship_agent(dev, train=True)
+    flagship_state, _ = graph_updates(flagship, flagship.new_train_state(305), ring.state,
+                                      EPOCH_COMPARED)
+    trainer = flagship_agent(dev, train=True)
+    batch = train_batch(FLAGSHIP["batch"], 310, dev)
+    obs_dim, act_dim = DREAMER_SHAPES["halfcheetah"]
+    dreamer_ring, _ = fill_ring(dev, 420, obs_dim, act_dim)
+    dreamer_eager, dreamer = dreamer_agent("halfcheetah", dev), dreamer_agent("halfcheetah", dev)
+    dreamer_eager_state = dreamer_eager.new_train_state(405)
+    dreamer_state, _ = graph_updates(dreamer, dreamer.new_train_state(405), dreamer_ring.state,
+                                     EPOCH_COMPARED)
+    envs, steps = FUSED_PENDULUM
+    loop = ["--num-envs", str(envs), "--steps-per-iter", str(steps)]
+    c = FUSED_CHEETAH
+    path = Path(__file__).resolve().parent / "examples" / "configs" / "halfcheetah_planar_fused.yaml"
+    pendulum = ("Pendulum-v1 sweep, K=10", f"Pendulum-v1 warm start, K={FUSED_WARM_STEPS}")
+    runs = {
+        pendulum[0]: fused_run(*loop),
+        pendulum[1]: fused_run(*loop, "--warm-start-steps", str(FUSED_WARM_STEPS)),
+        "HopperPlanar-v0": fused_run("--env", "HopperPlanar-v0", "--num-envs",
+                                     str(FUSED_HOPPER[0]), "--steps-per-iter", str(FUSED_HOPPER[1])),
+        "Walker2dPlanar-v0": fused_run("--env", "Walker2dPlanar-v0", "--num-envs",
+                                       str(FUSED_WALKER[0]), "--steps-per-iter",
+                                       str(FUSED_WALKER[1])),
+        "HalfCheetahPlanar-v0": fused_run("--config", str(path), "--num-envs", str(c["envs"]),
+                                          "--steps-per-iter", str(c["steps"])),
+    }
+
+    def collect(run):
+        run.env_states, run.policy_state, _ = train_fused.collect_and_store(
+            run.agent, run.state, run.collector, run.replay, run.env_states, run.policy_state,
+            run.generator, 0.1)
+
+    for run in runs.values():
+        collect(run)  # the first collect captures the env step
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(trainer.new_train_state(304), batch)
+    torch.cuda.synchronize()
+    epoch_graphs = [flagship._epoch_graphs, dreamer._epoch_graphs]
+    captures = [g.captures for g in epoch_graphs]
+    log(f"[5 profiled] set-up: the flagship's and the HalfCheetah learning preset's epoch "
+        f"graphs ({captures[0]} and {captures[1]} captured), the five collects' env steps "
+        f"captured, in {time.perf_counter() - t0:.1f} s")
+
+    # -- the profiled replays
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+    flagship_state, prof = profile_epoch(flagship, flagship_state, ring.state, EPOCH_PROFILED)
+    log(f"[5 profiled] train_epoch flagship v1-f32 B={FLAGSHIP['batch']}, {EPOCH_PROFILED} "
+        f"replays: {prof['sweep_kernels']} sweep kernels and {prof['graph_launches']} graph "
+        f"launches in the trace, launches counted {LAUNCHES[kernel]}; host {prof['host_ms']:.4f} "
+        f"ms, device {prof['device_ms']:.4f} ms an update, device busy "
+        f"{prof['device_ms'] / prof['host_ms']:.3%}, {prof['launches_outside']:.1f} launches an "
+        f"update outside the graph (kernels, copies, fills), sweep kernel {prof['sweep_ms']:.4f} "
+        f"ms an update | {card}")
+    if (prof["sweep_kernels"] != EPOCH_PROFILED or prof["graph_launches"] != EPOCH_PROFILED
+            or LAUNCHES[kernel] != EPOCH_PROFILED or not prof["metrics_finite"]):
+        raise RuntimeError("epoch: the profiler does not see one sweep kernel and one graph "
+                           "launch per replayed update")
+
+    for variant in ("v1", "v2"):
+        trainer.config.tpu.denoiser_kernel = variant
+        timed_state = trainer.new_train_state(304)
+
+        def train_call():
+            nonlocal timed_state
+            timed_state, _ = trainer.train_step(timed_state, batch)
+
+        train_call()
+        prof = profile_ms(train_call, 5, "denoise_sweep")
+        log(f"[5 profiled] train_step flagship {variant}-f32 B={FLAGSHIP['batch']}, 5 steps: host "
+            f"{prof['host_ms']:.4f} ms, device {prof['device_ms']:.4f} ms a step in "
+            f"{prof['kernels_per_call']:.0f} kernels, sweep kernel {prof['named_ms']:.4f} ms "
+            f"({prof['named_ms'] / prof['host_ms']:.3%} of the step, "
+            f"{prof['named_ms'] / prof['device_ms']:.3%} of device time), device busy "
+            f"{prof['device_ms'] / prof['host_ms']:.3%}; host ms a step by phase "
+            + json.dumps({k: round(v, 3) for k, v in prof["phases_host_ms"].items()})
+            + f" | {card}")
+        if prof["named_kernels"] != 5:
+            raise RuntimeError(f"train_step {variant}: {prof['named_kernels']} sweep kernels in "
+                               "the trace of 5 steps")
+
+    dreamer_state, prof = profile_epoch(dreamer, dreamer_state, dreamer_ring.state,
+                                        EPOCH_PROFILED)
+
+    def eager_call():
+        nonlocal dreamer_eager_state
+        dreamer_eager_state, _ = eager_updates(dreamer_eager, dreamer_eager_state,
+                                               dreamer_ring.state, 1)
+
+    eager_call()
+    eager_prof = profile_ms(eager_call, 3, "denoise_sweep")
+    log(f"[5 profiled] train_epoch halfcheetah_state_dreamer B={dreamer.config.batch_size}, "
+        f"{EPOCH_PROFILED} replays: host {prof['host_ms']:.4f} ms, device "
         f"{prof['device_ms']:.4f} ms an update in {prof['device_ops']:.0f} kernels and copies, "
         f"device busy {prof['device_ms'] / prof['host_ms']:.3%}, "
         f"{prof['launches_outside']:.1f} launches an update outside the graph, "
-        f"{prof['sweep_kernels']} sweep kernels; eager, 3 updates profiled: host "
+        f"{prof['sweep_kernels']} sweep kernels; eager, 3 updates: host "
         f"{eager_prof['host_ms']:.4f} ms, device {eager_prof['device_ms']:.4f} ms an update in "
         f"{eager_prof['kernels_per_call']:.0f} kernels, busy "
         f"{eager_prof['device_ms'] / eager_prof['host_ms']:.3%}; host ms an update by phase "
         + json.dumps({k: round(v, 3) for k, v in eager_prof["phases_host_ms"].items()})
         + f" | {card}")
-    if prof["sweep_kernels"] or not prof["metrics_finite"]:
+    if prof["sweep_kernels"] or eager_prof["named_kernels"] or not prof["metrics_finite"]:
         raise RuntimeError("dreamer epoch: a sweep in the trace, or non-finite metrics")
+
+    for label, run in runs.items():
+        step = replay_profile(run.collector)
+        want = 0 if label == "HalfCheetahPlanar-v0" else 1
+        log(f"[5 profiled] fused collect {label} ({run.args.num_envs} envs): one replayed env "
+            f"step, {step['kernels_per_call']:.0f} kernels and copies (the graph's nodes), "
+            f"{step['named_kernels']} sweep kernel, device {step['device_ms']:.4f} ms, host "
+            f"{step['host_ms']:.4f} ms, device busy {step['device_ms'] / step['host_ms']:.3%} "
+            f"| {card}")
+        if step["named_kernels"] != want:
+            raise RuntimeError(f"{label}: {step['named_kernels']} sweep kernels in the trace of "
+                               f"one replayed env step, expected {want}")
+    for label in pendulum:
+        run = runs[label]
+        prof = profile_ms(lambda: collect(run), 1, "denoise_sweep")
+        log(f"[5 profiled] fused collect {label} (one collect of {steps} steps x {envs} envs, "
+            f"graph replays): host {prof['host_ms']:.4f} ms, device {prof['device_ms']:.4f} ms "
+            f"in {prof['kernels_per_call'] / steps:.0f} kernels a step, {prof['named_kernels']} "
+            f"sweep kernels {prof['named_ms']:.4f} ms ({prof['named_ms'] / prof['device_ms']:.3%} "
+            f"of device time), device busy {prof['device_ms'] / prof['host_ms']:.3%} | {card}")
+        if prof["named_kernels"] != steps:
+            raise RuntimeError(f"{label}: {prof['named_kernels']} sweep kernels in the trace of a "
+                               f"collect of {steps} replayed steps, expected {steps}")
+    if [g.captures for g in epoch_graphs] != captures:
+        raise RuntimeError("an epoch graph was captured while the profiler ran")
+    log(f"[5 profiled] phase in {time.perf_counter() - t0:.1f} s")
+
+
+def profiled_main() -> int:
+    """``python3 chip_smoke.py --profiled``, the process that ``main``
+    starts for ``profiled_phase``: the card, the kernels ``main`` built
+    (the build is cached), then the profiled replays."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke needs a CUDA device; torch.cuda.is_available() is False")
+    from active_inference_diffusion_torch.ops import _build
+
+    for name in _build.build():
+        _build.load_library(name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    profiled_phase(torch.device("cuda"), nvidia_smi())
+    return 0
 
 
 def main() -> int:
@@ -1464,9 +1922,11 @@ def main() -> int:
     log(f"[4 dreamer] phase 4g in {time.perf_counter() - t0:.1f} s")
 
 
+
     # -- 5. times -----------------------------------------------------------
     hum = dict(batch=256, latent=64, hidden=256, layers=6, schedule_len=50, steps=50)
     flag = dict(batch=256, latent=32, hidden=128, layers=6, schedule_len=25, steps=25)
+    collect_shape = dict(batch=1024, latent=16, hidden=64, layers=2, schedule_len=10, steps=10)
     timed = [  # (kernel, shape label, shape); the first row of a kernel goes in its line
         ("denoise_sweep_v1_f32", "flagship", flag),
         ("denoise_sweep_v1_bf16", "humanoid_state", hum),
@@ -1484,6 +1944,12 @@ def main() -> int:
                                                    schedule_len=100, steps=100)),
         ("denoise_sweep_v1_f32", "h96", dict(batch=8, latent=128, hidden=96, layers=6,
                                               schedule_len=100, steps=100)),
+        # C4's sweep at the learning preset's width, and the fused collect's sweeps
+        ("denoise_sweep_v1_f32", "dreamer_c4", dict(flag, batch=16, schedule_len=15, steps=15)),
+        ("denoise_sweep_v1_f32", "fused_pendulum", collect_shape),
+        ("denoise_sweep_v1_f32", "fused_pendulum_warm", dict(collect_shape, steps=3)),
+        ("denoise_sweep_v1_f32", "fused_hopper", dict(collect_shape, batch=512)),
+        ("denoise_sweep_v1_f32", "fused_eval", dict(collect_shape, batch=64)),
     ]
     summary = {}
     for kernel, label, shape in timed:
@@ -1554,8 +2020,7 @@ def main() -> int:
                 log(f"[5 times] act latency {label} b={batch} {mode}: median {act_ms:.4f} ms "
                     f"over {TIMED_CALLS} calls | {card}")
 
-    # The flagship train update, per variant: host clock, and the sweep's share
-    # from the profiler.
+    # The flagship train update, per variant: host clock (profiled_phase profiles it).
     for variant in ("v1", "v2"):
         train_cfg.tpu.denoiser_kernel = variant
         timed_state = trainer.new_train_state(304)
@@ -1567,24 +2032,32 @@ def main() -> int:
         for _ in range(TRAIN_WARMUP):
             train_call()
         step_ms = host_ms(train_call, TRAIN_TIMED)
-        prof = profile_ms(train_call, 5, "denoise_sweep")
         log(f"[5 times] train_step flagship {variant}-f32 B={FLAGSHIP['batch']}: median "
             f"{statistics.median(step_ms):.4f} ms over {TRAIN_TIMED} steps (min "
-            f"{min(step_ms):.4f}, max {max(step_ms):.4f}; MINE every 5th); profiled over 5 "
-            f"steps: host {prof['host_ms']:.4f} ms, device {prof['device_ms']:.4f} ms a step in "
-            f"{prof['kernels_per_call']:.0f} kernels, sweep kernel {prof['named_ms']:.4f} ms "
-            f"({prof['named_ms'] / prof['host_ms']:.3%} of the step, "
-            f"{prof['named_ms'] / prof['device_ms']:.3%} of device time), device busy "
-            f"{prof['device_ms'] / prof['host_ms']:.3%}; host ms a step by phase (profiled) "
-            + json.dumps({k: round(v, 3) for k, v in prof["phases_host_ms"].items()})
-            + f" | {card}")
+            f"{min(step_ms):.4f}, max {max(step_ms):.4f}; MINE every 5th) | {card}")
     train_cfg.tpu.denoiser_kernel = "v1"
 
     # train_epoch at the flagship, v1: the eager loop against graph replays, in turns
-    epoch_times_phase(ring, epoch_pairs, launches, card)
+    epoch_times_phase(ring, epoch_pairs, card)
     t0 = time.perf_counter()
     dreamer_times_phase(dreamer, card)
     log(f"[5 times] the learning preset's times in {time.perf_counter() - t0:.1f} s")
+
+    # 4h, with its times: the fused collect+train loop (device envs, the
+    # planar engine, train_fused).
+    fused = fused_phase(dev, launches)
+    t0 = time.perf_counter()
+    fused_times_phase(fused, card)
+    log(f"[5 times] the fused loop's times in {time.perf_counter() - t0:.1f} s")
+
+    # The profiled replays, in a process of their own (see profiled_phase).
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), PROFILED_FLAG],
+                           timeout=PROFILED_TIMEOUT_S)
+    log(f"[5 profiled] the profiled process exited {child.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if child.returncode != 0:
+        raise RuntimeError(f"the profiled process exited {child.returncode}")
 
     # -- 6. summary ---------------------------------------------------------
     print(json.dumps({"kernels": [{
@@ -1606,4 +2079,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profiled_main() if sys.argv[1:] == [PROFILED_FLAG] else main())

@@ -290,20 +290,26 @@ def test_default_device_is_cuda():
 
 
 def test_port_imports_no_jax():
-    """Building the humanoid_state.yaml agent on the CPU and calling ``act``
-    and ``act_warm``, then one ``train_step`` of the same config cut to a
-    tiny width and a ``train_epoch`` of two updates over a device replay
-    ring on the CPU, then the same for hopper_state_dreamer.yaml (loaded
-    from its file, cut to a tiny width: posterior acting with the EMA
-    policy, the imagined actor-critic over the ensemble), loads no module of
-    jax, flax or the JAX package."""
+    """The humanoid_state.yaml agent cut to a tiny width (bfloat16 weights,
+    Fokker-Planck refinement) calling ``act`` and ``act_warm``, then one
+    ``train_step`` and a ``train_epoch`` of two updates over a device
+    replay ring on the CPU; hopper_state_dreamer.yaml (loaded from its file,
+    cut to a tiny width: posterior acting with the EMA policy, the imagined
+    actor-critic over the ensemble) the same; then hopper_planar_fused.yaml
+    at a tiny width on the planar engine: one ``collect_and_store`` and one
+    ``fused_eval`` step. None of it loads a module of jax, flax or the JAX
+    package. The widths are tiny: it checks imports, not numbers."""
     code = (
         "import sys\n"
         "import numpy as np, torch\n"
+        "torch.set_num_threads(1)  # beside the test workers; the widths are tiny\n"
         "from active_inference_diffusion_torch import DiffusionStateAgent\n"
         "from active_inference_diffusion_torch.configs.presets import (\n"
         "    HUMANOID_ACT_DIM, HUMANOID_OBS_DIM, humanoid_state)\n"
         "cfg, training = humanoid_state()\n"
+        "cfg.latent_dim, cfg.hidden_dim, cfg.score_num_layers = 8, 64, 1\n"
+        "cfg.diffusion.num_diffusion_steps = 5\n"
+        "training.collect_diffusion_steps = 3\n"
         "agent = DiffusionStateAgent(HUMANOID_OBS_DIM, HUMANOID_ACT_DIM, cfg, training,\n"
         "                            device='cpu')\n"
         "obs = np.zeros((2, HUMANOID_OBS_DIM), np.float32)\n"
@@ -312,10 +318,6 @@ def test_port_imports_no_jax():
         "w, z = agent.act_warm(obs, g, torch.zeros(2, cfg.latent_dim), np.array([True, False]))\n"
         "assert a.shape == w.shape == (2, HUMANOID_ACT_DIM) and np.isfinite(a).all()\n"
         "assert np.isfinite(w).all() and z.shape == (2, cfg.latent_dim)\n"
-        "cfg.latent_dim, cfg.hidden_dim, cfg.score_num_layers = 8, 64, 1\n"
-        "cfg.diffusion.num_diffusion_steps = 5\n"
-        "agent = DiffusionStateAgent(HUMANOID_OBS_DIM, HUMANOID_ACT_DIM, cfg, training,\n"
-        "                            device='cpu')\n"
         "state = agent.new_train_state(0)\n"
         "rng = np.random.default_rng(0)\n"
         "batch = {k: torch.tensor(rng.standard_normal(s), dtype=torch.float32) for k, s in (\n"
@@ -323,7 +325,7 @@ def test_port_imports_no_jax():
         "    ('actions', (2, HUMANOID_ACT_DIM)), ('rewards', (2,)), ('dones', (2,)))}\n"
         "state, metrics = agent.train_step(state, batch)\n"
         "assert state.step == 1 and all(bool(torch.isfinite(v)) for v in metrics.values())\n"
-        "from active_inference_diffusion_torch.data.replay import DeviceReplayBuffer\n"
+        "from active_inference_diffusion_torch.data.replay import DeviceReplayBuffer, replay_init\n"
         "cfg.batch_size = 4\n"
         "ring = DeviceReplayBuffer(8, (HUMANOID_OBS_DIM,), HUMANOID_ACT_DIM, device='cpu')\n"
         "ring.add_batch(*(rng.standard_normal(s) for s in ((5, HUMANOID_OBS_DIM),\n"
@@ -332,8 +334,11 @@ def test_port_imports_no_jax():
         "assert state.step == 3 and agent.total_steps == 2\n"
         "assert all(bool(torch.isfinite(v)) for v in metrics.values())\n"
         "from active_inference_diffusion_torch import load_yaml_config\n"
-        "cfg, training, _ = load_yaml_config('examples/configs/hopper_state_dreamer.yaml')\n"
-        "cfg.latent_dim, cfg.hidden_dim, cfg.score_num_layers, cfg.batch_size = 8, 32, 1, 4\n"
+        "def tiny(name):\n"
+        "    cfg, training, _ = load_yaml_config(f'examples/configs/{name}.yaml')\n"
+        "    cfg.latent_dim, cfg.hidden_dim, cfg.score_num_layers, cfg.batch_size = 8, 32, 1, 4\n"
+        "    return cfg, training\n"
+        "cfg, training = tiny('hopper_state_dreamer')\n"
         "agent = DiffusionStateAgent(HUMANOID_OBS_DIM, HUMANOID_ACT_DIM, cfg, training,\n"
         "                            device='cpu')\n"
         "state = agent.new_train_state(0)\n"
@@ -342,8 +347,26 @@ def test_port_imports_no_jax():
         "state, metrics = agent.train_step(state, batch)\n"
         "state, metrics = agent.train_epoch(state, ring.state, 2)\n"
         "assert state.step == 3 and all(bool(torch.isfinite(v)) for v in metrics.values())\n"
+        "from active_inference_diffusion_torch import train_fused\n"
+        "from active_inference_diffusion_torch.envs import device_envs as de\n"
+        "from active_inference_diffusion_torch.envs.collect_graph import CollectGraph, EvalGraph\n"
+        "env = de.make_device_env('HopperPlanar-v0', device='cpu')\n"
+        "cfg, training = tiny('hopper_planar_fused')\n"
+        "agent = DiffusionStateAgent(env.observation_dim, env.action_dim, cfg, training,\n"
+        "                            device='cpu')\n"
+        "state = agent.new_train_state(0)\n"
+        "policy = de.ExplorationNoise(de.make_rollout_policy(agent.core, env,\n"
+        "    act_from_posterior=True), env, torch.zeros(()))\n"
+        "ring = replay_init(8, (env.observation_dim,), env.action_dim, device='cpu')\n"
+        "states = env.reset(env.draw_reset(2, g))\n"
+        "states, _, mean = train_fused.collect_and_store(agent, state, CollectGraph(env, policy,\n"
+        "    2, 1), ring, states, None, g, 0.1)\n"
+        "assert ring.host_size == 2 and bool(torch.isfinite(mean))\n"
+        "evaluator = EvalGraph(env, de.make_rollout_policy(agent.core, env, deterministic=True,\n"
+        "    act_from_posterior=True), 2, 1)\n"
+        "assert bool(torch.isfinite(train_fused.eval_return(agent, state, evaluator, g)))\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "                ('jax', 'flax', 'active_inference_diffusion_tpu'))\n"
+        "                ('jax', 'flax', 'active_inference_diffusion_tpu', 'mujoco', 'gymnasium'))\n"
         "assert not loaded, loaded\n"
     )
     proc = subprocess.run(

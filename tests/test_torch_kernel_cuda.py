@@ -18,7 +18,11 @@ streamed plans have tests of their own. The last tests hold ``train_epoch``
 on the card, each update a replayed CUDA graph, against the eager loop of
 the same updates (the flagship's flags, and hopper_state_dreamer.yaml's
 across the policy anchor's gate), a capture that fails, and acting with
-the score network's EMA.
+the score network's EMA. The fused collect's tests hold the collect and
+eval graphs (one captured env step, replayed) against the eager steps on
+the same draws: Pendulum with the sweep and with warm starts (one sweep
+launch per env step), the exploration scale written between collects,
+HopperPlanar's physics, and a step that cannot be captured.
 """
 
 import numpy as np
@@ -674,3 +678,135 @@ def test_acting_with_the_score_ema_packs_it_apart(cuda):
             for v in state.ema_score.values():
                 v.mul_(0.5)
     assert not np.allclose(acts[0], acts[1])
+
+
+# -- the fused collect and eval on the card (envs/collect_graph.py) ---------
+
+
+def _fused_policy(cuda, env, warm=False, eps=0.3):
+    """The Pendulum entry point's agent (train_fused's flag defaults, K=5),
+    weights randomised, and its collect policy with exploration noise."""
+    from active_inference_diffusion_torch.envs import device_envs as de
+
+    cfg = ActiveInferenceConfig(observation_dim=env.observation_dim, action_dim=env.action_dim,
+                                latent_dim=16, hidden_dim=64, score_num_layers=2,
+                                diffusion=DiffusionConfig(num_diffusion_steps=5))
+    agent = DiffusionStateAgent(env.observation_dim, env.action_dim, cfg, TrainingConfig())
+    randomize(agent.core, 11)
+    inner = (de.make_warm_rollout_policy(agent.core, env, num_steps=3) if warm
+             else de.make_rollout_policy(agent.core, env))
+    return agent, de.ExplorationNoise(inner, env, torch.tensor(eps, device=cuda))
+
+
+def _eager_collect(env, policy, states, pstate, gen_state, num_envs, steps):
+    from active_inference_diffusion_torch.envs import device_envs as de
+
+    gen = torch.Generator(device=states.obs.device)
+    gen.set_state(gen_state)
+    fn = policy if policy.stateful else de.stateful(policy)
+    return de.fused_collect_stateful(env, fn, de.draw_collect(env, policy, num_envs, steps, gen,
+                                                              reset=False), pstate, states)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["sweep", "warm"])
+def test_collect_graph_matches_the_eager_collect(cuda, warm):
+    """Two collects of 6 steps of 32 Pendulum envs as graph replays against
+    the eager steps on the same draws; one sweep launch per env step, none
+    plain, the first collect (with the capture) and the second alike."""
+    from active_inference_diffusion_torch.envs import device_envs as de
+    from active_inference_diffusion_torch.envs.collect_graph import CollectGraph
+
+    env = de.make_device_env("Pendulum-v1")
+    agent, policy = _fused_policy(cuda, env, warm)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    states = env.reset(env.draw_reset(32, gen))
+    pstate = de.init_warm_state(32, 16, gen) if warm else None
+    collector = CollectGraph(env, policy, 32, 6)
+    name = kernel_name("v1", torch.float32)
+    for _ in range(2):
+        snapshot, before = gen.get_state(), (LAUNCHES[name], PLAIN_RUNS[name])
+        first = (de.EnvState(*[x.clone() for x in states.tensors()]),
+                 None if pstate is None else pstate.clone())
+        tr, states, pstate = collector.collect(states, pstate, gen)
+        torch.cuda.synchronize()
+        assert (LAUNCHES[name] - before[0], PLAIN_RUNS[name] - before[1]) == (6, 0)
+        want, want_states, want_p = _eager_collect(env, policy, first[0], first[1], snapshot,
+                                                   32, 6)
+        for got, exp in zip(tr, want):
+            torch.testing.assert_close(got, exp, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(states.physics, want_states.physics, rtol=1e-6, atol=1e-6)
+        if warm:
+            torch.testing.assert_close(pstate, want_p, rtol=1e-6, atol=1e-6)
+    assert collector.captures == 1 and collector.step_graph.replays == 11
+
+
+def test_collect_graph_reads_eps_at_each_replay(cuda):
+    """The exploration scale is a device tensor the host writes: a collect
+    at eps 0.3 captures the step; the next collect at eps 0 equals the eager
+    collect at eps 0, and not the one at 0.3."""
+    from active_inference_diffusion_torch.envs import device_envs as de
+    from active_inference_diffusion_torch.envs.collect_graph import CollectGraph
+
+    env = de.make_device_env("Pendulum-v1")
+    _, policy = _fused_policy(cuda, env, eps=0.3)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    states = env.reset(env.draw_reset(16, gen))
+    collector = CollectGraph(env, policy, 16, 3)
+    _, states, _ = collector.collect(states, None, gen)
+    policy.eps.fill_(0.0)
+    snapshot = gen.get_state()
+    first = de.EnvState(*[x.clone() for x in states.tensors()])
+    tr, _, _ = collector.collect(states, None, gen)
+    want, _, _ = _eager_collect(env, policy, first, None, snapshot, 16, 3)
+    torch.testing.assert_close(tr.actions, want.actions, rtol=1e-6, atol=1e-6)
+    policy.eps.fill_(0.3)
+    noisy, _, _ = _eager_collect(env, policy, first, None, snapshot, 16, 3)
+    assert not torch.allclose(tr.actions, noisy.actions)
+
+
+def test_planar_collect_and_eval_graphs_match_eager(cuda):
+    """HopperPlanar-v0, 8 envs: a collect of 3 steps as graph replays
+    against the eager steps, the physics finite; an eval of 4 steps against
+    ``fused_eval`` on the same draws."""
+    from active_inference_diffusion_torch.envs import device_envs as de
+    from active_inference_diffusion_torch.envs.collect_graph import CollectGraph, EvalGraph
+
+    env = de.make_device_env("HopperPlanar-v0")
+    agent, policy = _fused_policy(cuda, env)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    states = env.reset(env.draw_reset(8, gen))
+    first, snapshot = de.EnvState(*[x.clone() for x in states.tensors()]), gen.get_state()
+    tr, states, _ = CollectGraph(env, policy, 8, 3).collect(states, None, gen)
+    want, want_states, _ = _eager_collect(env, policy, first, None, snapshot, 8, 3)
+    assert torch.isfinite(states.physics).all()
+    for got, exp in zip(tr, want):
+        torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)
+    evaluator = de.make_rollout_policy(agent.core, env, deterministic=True)
+    snapshot = gen.get_state()
+    got = EvalGraph(env, evaluator, 8, 4).evaluate(gen)
+    gen.set_state(snapshot)
+    exp = de.fused_eval(env, evaluator, de.draw_eval(env, evaluator, 8, 4, gen))
+    torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)
+
+
+def test_a_collect_capture_that_fails_raises(cuda):
+    """A step that reads the device from the host cannot be captured: the
+    collect raises instead of running it eagerly."""
+    from active_inference_diffusion_torch.envs import device_envs as de
+    from active_inference_diffusion_torch.envs.collect_graph import CollectGraph
+
+    env = de.make_device_env("Pendulum-v1")
+
+    class Syncing:
+        stateful = False
+
+        def draw(self, n, generator):
+            return torch.randn((n, 1), generator=generator, device=cuda)
+
+        def __call__(self, obs, noise):
+            return noise * float(obs.abs().max())  # a host read
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    states = env.reset(env.draw_reset(4, gen))
+    with pytest.raises(RuntimeError, match="capturing the env step failed"):
+        CollectGraph(env, Syncing(), 4, 2).collect(states, None, gen)

@@ -134,9 +134,11 @@ def jax_core_and_params(cfg=None, seed: int = 0):
     seed, and are built once for each."""
     cfg = cfg or tiny_config()
     core = _cached(
-        ("core", _config_key(cfg)), lambda: JaxCore(OBS_DIM, ACT_DIM, cfg.latent_dim, cfg)
+        ("core", _config_key(cfg)),
+        lambda: JaxCore(cfg.observation_dim, cfg.action_dim, cfg.latent_dim, cfg)
     )
-    widths = (cfg.latent_dim, cfg.hidden_dim, cfg.score_num_layers)
+    widths = (cfg.latent_dim, cfg.hidden_dim, cfg.score_num_layers, cfg.observation_dim,
+              cfg.action_dim)
 
     def build():
         z = jnp.zeros((1, cfg.latent_dim))
@@ -146,7 +148,7 @@ def jax_core_and_params(cfg=None, seed: int = 0):
             keys = jax.random.split(key, 9)
             return {
                 "score": core.score_network.init(
-                    keys[0], z, jnp.zeros((1,)), jnp.zeros((1, OBS_DIM)),
+                    keys[0], z, jnp.zeros((1,)), jnp.zeros((1, cfg.observation_dim)),
                     continuous=True, train=False,
                 )["params"],
                 "policy": core.policy_network.init(keys[1], z)["params"],
@@ -164,7 +166,7 @@ def jax_agent(cfg, training_config=None) -> JaxStateAgent:
     training_config = training_config or TrainingConfig()
     return _cached(
         ("agent", _config_key(cfg), _config_key(training_config)),
-        lambda: JaxStateAgent(OBS_DIM, ACT_DIM, cfg, training_config),
+        lambda: JaxStateAgent(cfg.observation_dim, cfg.action_dim, cfg, training_config),
     )
 
 
@@ -227,15 +229,16 @@ def numpy_tree(tree):
 
 
 def torch_core(cfg, params) -> TorchCore:
-    core = TorchCore(OBS_DIM, ACT_DIM, cfg.latent_dim, port_config(cfg), device=CPU)
+    core = TorchCore(cfg.observation_dim, cfg.action_dim, cfg.latent_dim, port_config(cfg),
+                     device=CPU)
     load_jax_params(core, params)
     return core
 
 
 def torch_agent(cfg, params, training_config=None) -> DiffusionStateAgent:
     agent = DiffusionStateAgent(
-        OBS_DIM, ACT_DIM, port_config(cfg), port_config(training_config or TrainingConfig()),
-        device=CPU,
+        cfg.observation_dim, cfg.action_dim, port_config(cfg),
+        port_config(training_config or TrainingConfig()), device=CPU,
     )
     agent.load_jax_params(params)
     return agent
@@ -283,7 +286,7 @@ def elbo_draws(jcore, params, elbo_key, time_importance, batch):
     )
     (score_mask,) = dropout_masks(
         jcore.score_network, {"params": params["score"]}, drop2, z, jnp.full((batch,), 0.5),
-        jnp.zeros((batch, OBS_DIM)), continuous=True, train=True,
+        jnp.zeros((batch, jcore.observation_dim)), continuous=True, train=True,
     )
     return dict(
         decoder_masks=tuple(decoder_masks), score_mask=score_mask,
@@ -305,7 +308,7 @@ def efe_draws(cfg, efe_key, batch, parts=3):
 
     def step(key):
         pol_key, dyn_key = jax.random.split(key, parts)[:2]
-        out = dict(policy_noise=jax.random.normal(pol_key, (n, ACT_DIM)),
+        out = dict(policy_noise=jax.random.normal(pol_key, (n, cfg.action_dim)),
                    dynamics_noise=jax.random.normal(dyn_key, (n, D)))
         if k > 1:
             out["members"] = jax.random.randint(jax.random.fold_in(dyn_key, 1), (n,), 0, k)
@@ -322,7 +325,8 @@ def mine_draws(jcore, params, epi_key, batch, num_samples=MINE_SAMPLES):
     n = num_samples * batch
     masks = dropout_masks(
         jcore.epistemic_estimator, params["epistemic"], dropout_key,
-        jnp.zeros((ntk, n, OBS_DIM)), jnp.zeros((n, D)), jnp.arange(n), train=True,
+        jnp.zeros((ntk, n, jcore.observation_dim)), jnp.zeros((n, D)), jnp.arange(n),
+        train=True,
     )
     return dict(
         noise=jax.random.normal(sample_key, (num_samples, batch, D)),
@@ -514,7 +518,8 @@ def start(cfg, jstate=None):
     jagent = jax_agent(cfg)
     jstate = jax_train_state(cfg) if jstate is None else jstate
     agent = DiffusionStateAgent(
-        OBS_DIM, ACT_DIM, port_config(cfg), port_config(TrainingConfig()), device=CPU
+        cfg.observation_dim, cfg.action_dim, port_config(cfg), port_config(TrainingConfig()),
+        device=CPU,
     )
     state = train_state_from_jax(agent, numpy_tree(jstate))
     grads = {}
