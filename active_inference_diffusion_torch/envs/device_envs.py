@@ -284,9 +284,11 @@ _MJ_TASKS = ("HalfCheetah-v4", "Hopper-v4", "Walker2d-v4", "Ant-v4", "Humanoid-v
 
 def make_device_env(name: str, device=None, dtype: torch.dtype = torch.float32) -> DeviceEnv:
     """The env called ``name`` on ``device`` (None: CUDA): the three analytic
-    envs and the planar MuJoCo tasks (``HopperPlanar-v0``,
-    ``Walker2dPlanar-v0``, ``HalfCheetahPlanar-v0``). The JAX registry's
-    other names raise ``NotImplementedError`` naming their ROADMAP item."""
+    envs, the planar MuJoCo tasks (``HopperPlanar-v0``,
+    ``Walker2dPlanar-v0``, ``HalfCheetahPlanar-v0``) and the 3D ones
+    (``Ant3D-v0``, ``Humanoid3D-v0``, ``HumanoidStandup3D-v0``). The JAX
+    registry's other names raise ``NotImplementedError`` naming their
+    ROADMAP item."""
     if name in ENV_REGISTRY:
         return ENV_REGISTRY[name](device=device, dtype=dtype)
     if name.endswith("Pixels-v0"):
@@ -296,13 +298,15 @@ def make_device_env(name: str, device=None, dtype: torch.dtype = torch.float32) 
 
         return PlanarMJCEnv(name.replace("Planar-v0", "-v4"), device=device, dtype=dtype)
     if name in ("Ant3D-v0", "Humanoid3D-v0", "HumanoidStandup3D-v0"):
-        raise NotImplementedError(f"{name}: the 3D engine (envs/rigid3d.py) is not ported yet "
-                                  "(ROADMAP A9)")
+        from .rigid3d import Rigid3DEnv
+
+        return Rigid3DEnv(name.replace("3D-v0", "-v4"), device=device, dtype=dtype)
     if name in _MJ_TASKS:
         raise NotImplementedError(f"{name}: the MJX adapter is not ported (ROADMAP A13); the "
                                   "planar tasks run as <Task>Planar-v0")
     raise ValueError(f"Unknown device env {name}; have {sorted(ENV_REGISTRY)} plus "
-                     "HopperPlanar-v0/Walker2dPlanar-v0/HalfCheetahPlanar-v0")
+                     "HopperPlanar-v0/Walker2dPlanar-v0/HalfCheetahPlanar-v0 and "
+                     "Ant3D-v0/Humanoid3D-v0/HumanoidStandup3D-v0")
 
 
 # ---------------------------------------------------------------------------

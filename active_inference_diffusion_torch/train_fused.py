@@ -14,7 +14,12 @@ the iteration loop (``train_epoch`` with ``--train-epoch``, else
 ``train_step`` on ``replay_sample``), with ``fused_eval`` every
 ``--eval-every`` iterations and a JSONL log under ``--log-dir``. Without
 ``--config`` it trains on Pendulum-v1 with the sweep acting; with a planar
-preset (``examples/configs/*_planar_fused.yaml``) on the planar engine.
+preset (``examples/configs/*_planar_fused.yaml``) on the planar engine; with
+a 3D preset (``ant3d_fused*.yaml``, ``humanoid3d_fused.yaml``,
+``humanoidstandup3d_fused.yaml``) or ``--env Ant3D-v0`` on the 3D engine.
+``tpu.compute_dtype`` sets the sweep's weight type only, as in the JAX
+package; ``tpu.remat_score_network`` changes nothing here (in JAX a
+``jax.checkpoint`` that trades memory and leaves the values equal).
 
 It runs on the CUDA device unless ``--device cpu`` is given; there each
 collect step and each eval step is a replayed CUDA graph

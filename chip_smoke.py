@@ -12,9 +12,9 @@ ones, runs the widths beyond the kernels' 48 MiB of trunk weights through
 the plain sweep on the card, drives the learning presets
 (``*_state_dreamer.yaml``: posterior beliefs, the imagined actor-critic,
 no sweep) through ``train_step``, ``train_epoch`` and ``act``, drives the
-fused collect+train loop (``train_fused``: device envs, the planar engine,
-each env step a replayed CUDA graph with the sweep kernel inside it), and
-times them. Any failed phase raises, so the script exits non-zero;
+fused collect+train loop (``train_fused``: device envs, the planar and the
+3D engines, each env step a replayed CUDA graph with the sweep kernel inside
+it), and times them. Any failed phase raises, so the script exits non-zero;
 without a CUDA device it exits non-zero before printing a result. It
 imports no JAX and nothing of the JAX package.
 
@@ -39,7 +39,8 @@ Phases:
    300 (v1 B=256, v2 B=512); hidden 96, padded to 128 (f32, B=8 and 37);
    v1-f32 at the HalfCheetah learning preset's width, B=16, K=15 (C4), and
    at the fused collect's (latent 16, hidden 64, 2 blocks, K=10: B=1024,
-   its warm start's K=3, B=512, and the eval's B=64).
+   its warm start's K=3, B=512, the eval's B=64 and the Ant3D collect's
+   B=256).
 4. main paths, each with every launch count set to 0 just before it and
    read just after; actions finite, (B, A), within [-1, 1]; exactly one
    launch per call of the path's kernel and none of another; eval actions
@@ -114,6 +115,20 @@ Phases:
    finite, the ring's size and position equal to the env steps stored, no
    sweep; then one ``fused_eval`` of 64 envs cut to 100 of its 1000 steps,
    to keep the script within its time.
+   i. (run after 4h's times) ``[4 rigid3d]`` (``rigid3d_phase``), the 3D
+   engine in the fused loop, each run set up by ``train_fused.build_run``:
+   Ant3D-v0 at bench.py:1036-1089's shape (256 envs x 16 steps, train_fused's
+   defaults: latent 16, hidden 64, 2 blocks, K=10) with the sweep acting,
+   then Humanoid3D-v0 and HumanoidStandup3D-v0 at 64 x 8 with the same
+   policy, each with 4h's collect checks (one sweep launch an env step, no
+   plain run, graph replays against the eager loop over steps 0-3, the CPU
+   twin over steps 0-1, physics finite) and its observation width (27,
+   376, 376); humanoid3d_fused.yaml at its published widths (latent 64,
+   hidden 256, 6 blocks, K=10, batch 128, 5 members, posterior acting, bf16
+   sweep weights) in the README's loop, 2 iterations of 64 envs x 16 steps
+   and 64 ``train_epoch`` updates from an empty ring, and one iteration of
+   ant3d_fused.yaml, each with 4h's preset checks and an eval of 16 envs
+   cut to 100 of its 1000 steps for chip time.
 5. times: each kernel against its plain version at its main path's shape
    (CUDA events), and at the other shapes of the timed list; for every row
    the plain version captured once in a CUDA graph and replayed
@@ -136,7 +151,7 @@ Phases:
    The fused loop (``fused_times_phase``): env steps/s of each collect of
    4h (its second collect, graph replays only), the capture's seconds; the
    HalfCheetah preset's iterations (env steps/s, the collect alone,
-   updates/s).
+   updates/s); the same for ``[4 rigid3d]``'s collects and presets.
    Under torch.profiler, in a process of its own (``profiled_phase``,
    ``python3 chip_smoke.py --profiled``, started here; the process of the
    other phases never starts the profiler): ten replays of the flagship's
@@ -146,8 +161,9 @@ Phases:
    three eager updates of the HalfCheetah learning preset (no sweep
    kernel), one replayed env step of each collect of 4h (its kernels; one
    sweep kernel where the sweep acts, none in the HalfCheetah preset's
-   step) and one collect of each Pendulum run (one sweep kernel an env
-   step, the sweep's share of the device time, the busy share).
+   step; the 3D collects' steps too) and one collect of each Pendulum run
+   and of the Ant3D run (one sweep kernel an env step, the sweep's share
+   of the device time, the busy share).
 6. the kernel summary line, the card line, and the result line.
 """
 
@@ -211,6 +227,8 @@ PARITY_SHAPES = [
     ("denoise_sweep_v1_f32", "fused_pendulum_warm", 1024, 16, 64, 2, 10, 3),
     ("denoise_sweep_v1_f32", "fused_hopper", 512, 16, 64, 2, 10, 10),
     ("denoise_sweep_v1_f32", "fused_eval", 64, 16, 64, 2, 10, 10),
+    # the Ant3D collect (bench.py:1036-1089): 256 envs at train_fused's defaults
+    ("denoise_sweep_v1_f32", "fused_ant3d", 256, 16, 64, 2, 10, 10),
 ]
 # The widths C1 found refused, at the config's 6 blocks. (latent, hidden,
 # compute_dtype); batch 8, K=100 (the halfcheetah_state.yaml schedule; the
@@ -279,8 +297,35 @@ DREAMER_TIMED = 128
 FUSED_PENDULUM, FUSED_WARM_STEPS, FUSED_EVAL_ENVS = (1024, 64), 3, 64
 FUSED_HOPPER, FUSED_WALKER = (512, 32), (64, 16)
 FUSED_CHEETAH = dict(envs=64, steps=16, updates=64, iterations=3, eval_envs=64, eval_steps=100)
+FUSED_COLLECTS = ("Pendulum-v1 sweep, K=10", f"Pendulum-v1 warm start, K={FUSED_WARM_STEPS}",
+                  "HopperPlanar-v0", "Walker2dPlanar-v0")
 FUSED_GRAPH_STEPS, FUSED_TWIN_STEPS = 4, 2
 FUSED_GRAPH_TOL, FUSED_TWIN_TOL = (1e-6, 1e-6), (1e-3, 1e-3)
+# The 3D engine (envs/rigid3d.py) in the fused loop: the Ant3D collect at
+# bench.py:1036-1089's shape (256 envs x 16 steps, train_fused's defaults:
+# latent 16, hidden 64, 2 blocks, K=10); Humanoid3D-v0 and
+# HumanoidStandup3D-v0, 64 envs x 8 steps with the same sweep policy;
+# humanoid3d_fused.yaml at its published widths (latent 64, hidden 256, 6
+# blocks, K=10, batch 128, 5 members, posterior acting, bf16 compute_dtype) in
+# the README's loop (64 envs x 16 steps and 64 train_epoch updates an
+# iteration), 2 iterations from an empty ring, and one of ant3d_fused.yaml;
+# each preset's eval of 16 envs cut to 100 of its 1000 steps for chip time.
+# The CPU twin of the Humanoid family is held at rtol / atol 1e-2 rather than
+# 4h's 1e-3: their observation carries cfrc_ext, the penalty contacts'
+# wrenches, whose stiffness turns float32 rounding of the state into ~1e-3
+# of the force after one step (tests/test_torch_rigid3d.py, float32 against
+# float64), and card and CPU round differently (1.7e-3 relative for
+# HumanoidStandup3D at 64 envs over steps 0-1 on an H100).
+RIGID3D_COLLECTS = {"Ant3D-v0": (256, 16), "Humanoid3D-v0": (64, 8),
+                    "HumanoidStandup3D-v0": (64, 8)}
+RIGID3D_TWIN_TOL = {"Ant3D-v0": FUSED_TWIN_TOL, "Humanoid3D-v0": (1e-2, 1e-2),
+                    "HumanoidStandup3D-v0": (1e-2, 1e-2)}
+RIGID3D_PRESETS = {
+    "humanoid3d_fused": dict(envs=64, steps=16, updates=64, iterations=2, eval_envs=16,
+                             eval_steps=100),
+    "ant3d_fused": dict(envs=64, steps=16, updates=64, iterations=1, eval_envs=16,
+                        eval_steps=100),
+}
 # Kernel vs plain sweep, elementwise |kernel - plain| <= atol + rtol |plain|.
 # float32: another summation order, compounded over up to 100 dependent
 # steps of 6 blocks. bfloat16 weights: the same rounding sites on both
@@ -1257,7 +1302,8 @@ def replay_profile(collector) -> dict:
     return profile_ms(collector.step_graph.graph.replay, 1, "denoise_sweep")
 
 
-def fused_collect_check(dev, label: str, run, sweep: bool) -> dict:
+def fused_collect_check(dev, label: str, run, sweep: bool, tag: str = "[4 fused]",
+                        twin_tol=FUSED_TWIN_TOL) -> dict:
     """Two collects of the run (``train_fused.collect_and_store``: the graph
     of one env step replayed, the transitions into the ring), the counts set
     to 0 just before and read just after; then, on the first collect's
@@ -1316,20 +1362,78 @@ def fused_collect_check(dev, label: str, run, sweep: bool) -> dict:
         cpu_env, twin_policy if twin_policy.stateful else de.stateful(twin_policy), cpu_draws,
         None if first_p is None else first_p.cpu(),
         de.EnvState(*[x.cpu() for x in first_states.tensors()]))
-    twin_err = transitions_err(first, cpu, FUSED_TWIN_STEPS, *FUSED_TWIN_TOL)
+    twin_err = transitions_err(first, cpu, FUSED_TWIN_STEPS, *twin_tol)
     graph = run.collector.step_graph
-    log(f"[4 fused] {label}: {n} envs x {steps} steps, two collects of graph replays "
+    log(f"{tag} {label}: {n} envs x {steps} steps, obs width {run.env.observation_dim}, two "
+        f"collects of graph replays "
         f"(capture {graph.capture_seconds:.2f} s), launches "
         f"{counts[0][kernel]} of {kernel} ({'one' if sweep else 'none'} per env step), plain "
         f"runs {sum(counts[1].values())}; transitions and physics finite; graph vs the eager "
         f"loop over steps 0-{compared - 1}: err/tol {graph_err:.3e} (rtol "
         f"{FUSED_GRAPH_TOL[0]:g}, atol {FUSED_GRAPH_TOL[1]:g}); card vs CPU twin over steps "
-        f"0-{FUSED_TWIN_STEPS - 1}: err/tol {twin_err:.3e} (rtol {FUSED_TWIN_TOL[0]:g}, atol "
-        f"{FUSED_TWIN_TOL[1]:g}); ring size {run.replay.host_size}")
+        f"0-{FUSED_TWIN_STEPS - 1}: err/tol {twin_err:.3e} (rtol {twin_tol[0]:g}, atol "
+        f"{twin_tol[1]:g}); ring size {run.replay.host_size}")
     if graph_err > 1.0 or twin_err > 1.0:
         raise RuntimeError(f"{label}: the graph collect disagrees with the eager loop or the CPU")
     return dict(launches=counts[0][kernel], steps_per_s=n * steps / seconds[1],
                 first_s=seconds[0], capture_s=graph.capture_seconds, run=run)
+
+
+def fused_preset_check(tag: str, preset: str, c: dict) -> dict:
+    """``examples/configs/<preset>.yaml`` at its published widths through
+    ``train_fused.build_run`` in the loop shape ``c``: ``c["iterations"]``
+    calls of ``train_fused.iterate`` (``c["envs"]`` envs x ``c["steps"]``
+    steps, ``c["updates"]`` ``train_epoch`` updates) from an empty ring,
+    the counts set to 0 just before and read just after, then one
+    ``fused_eval`` of ``c["eval_envs"]`` envs cut to ``c["eval_steps"]``
+    steps. Metrics finite, the ring's size and position equal to the env
+    steps stored, no sweep (the presets act from the posterior). Returns
+    the iterations' logs, the eval's seconds, the run and evaluator, and the
+    collect's capture seconds."""
+    from active_inference_diffusion_torch import train_fused
+    from active_inference_diffusion_torch.envs.collect_graph import EvalGraph
+    from active_inference_diffusion_torch.envs.device_envs import make_rollout_policy
+    from active_inference_diffusion_torch.ops.denoise import KERNELS, LAUNCHES, PLAIN_RUNS
+
+    path = Path(__file__).resolve().parent / "examples" / "configs" / f"{preset}.yaml"
+    run = fused_run("--config", str(path), "--num-envs", str(c["envs"]), "--steps-per-iter",
+                    str(c["steps"]), "--updates-per-iter", str(c["updates"]), "--iterations",
+                    str(c["iterations"]), "--train-epoch")
+    cfg = run.agent.config
+    for name in KERNELS:
+        LAUNCHES[name] = PLAIN_RUNS[name] = 0
+    logs = []
+    for it in range(c["iterations"]):
+        logs.append(train_fused.iterate(run, it))
+    evaluator = EvalGraph(run.env, make_rollout_policy(run.agent.core, run.env,
+                                                       deterministic=True, act_from_posterior=True),
+                          c["eval_envs"], c["eval_steps"])
+    te = time.perf_counter()
+    ret = float(train_fused.eval_return(run.agent, run.state, evaluator, run.generator))
+    eval_s = time.perf_counter() - te
+    counts = (sum(LAUNCHES.values()), sum(PLAIN_RUNS.values()))
+    stored = c["iterations"] * c["envs"] * c["steps"]
+    ring = run.replay
+    finite = all(np.isfinite(v) for lg in logs for v in lg.values()) and np.isfinite(ret)
+    log(f"{tag} {preset}.yaml B={cfg.batch_size} D={cfg.latent_dim} "
+        f"H={cfg.hidden_dim} L={cfg.score_num_layers} K={cfg.diffusion.num_diffusion_steps} "
+        f"ensemble {cfg.num_dynamics_ensemble}, sweep weights {cfg.tpu.compute_dtype}, posterior "
+        f"acting: {c['iterations']} iterations of "
+        f"{c['envs']} envs x {c['steps']} steps and {c['updates']} train_epoch updates (graph "
+        f"replays) from an empty ring; ring size {ring.host_size} pos {ring.host_pos} (device "
+        f"{int(ring.size)} / {int(ring.pos)}) for {stored} env steps stored; sweeps launched "
+        f"{counts[0]}, plain {counts[1]}; collect graph capture "
+        f"{run.collector.step_graph.capture_seconds:.2f} s; fused_eval {c['eval_envs']} envs "
+        f"cut to {c['eval_steps']} of "
+        f"{run.env.max_episode_steps} steps (the script's time): mean return {ret:.4f} in {eval_s:.2f} s "
+        f"(capture {evaluator.step_graph.capture_seconds:.2f} s); last metrics "
+        + json.dumps({k: round(v, 6) for k, v in logs[-1].items()}))
+    if not finite or (ring.host_size, ring.host_pos, int(ring.size), int(ring.pos)) != (
+            stored, stored, stored, stored) or counts != (0, 0):
+        raise RuntimeError(f"{preset}: non-finite metrics, a ring that does not hold the env "
+                           "steps stored, or a sweep")
+    return dict(logs=logs, eval_s=eval_s, run=run, evaluator=evaluator,
+                capture_s=run.collector.step_graph.capture_seconds)
 
 
 def fused_phase(dev, launches: dict) -> dict:
@@ -1337,8 +1441,6 @@ def fused_phase(dev, launches: dict) -> dict:
     Adds the sweep launches of its main paths to ``launches``; returns what
     phase 5 reports."""
     from active_inference_diffusion_torch import train_fused
-    from active_inference_diffusion_torch.envs.collect_graph import EvalGraph
-    from active_inference_diffusion_torch.envs.device_envs import make_rollout_policy
     from active_inference_diffusion_torch.ops.denoise import KERNELS, LAUNCHES, PLAIN_RUNS
 
     out = {}
@@ -1377,70 +1479,56 @@ def fused_phase(dev, launches: dict) -> dict:
         out[label] = fused_collect_check(dev, label, run, sweep=True)
         launches[kernel] += out[label]["launches"]
     # c. halfcheetah_planar_fused.yaml at its published widths, the README's loop shape
-    c = FUSED_CHEETAH
-    path = Path(__file__).resolve().parent / "examples" / "configs" / "halfcheetah_planar_fused.yaml"
-    run = fused_run("--config", str(path), "--num-envs", str(c["envs"]), "--steps-per-iter",
-                    str(c["steps"]), "--updates-per-iter", str(c["updates"]), "--iterations",
-                    str(c["iterations"]), "--train-epoch")
-    cfg = run.agent.config
-    for name in KERNELS:
-        LAUNCHES[name] = PLAIN_RUNS[name] = 0
-    logs = []
-    for it in range(c["iterations"]):
-        logs.append(train_fused.iterate(run, it))
-    evaluator = EvalGraph(run.env, make_rollout_policy(run.agent.core, run.env,
-                                                       deterministic=True, act_from_posterior=True),
-                          c["eval_envs"], c["eval_steps"])
-    te = time.perf_counter()
-    ret = float(train_fused.eval_return(run.agent, run.state, evaluator, run.generator))
-    eval_s = time.perf_counter() - te
-    counts = (sum(LAUNCHES.values()), sum(PLAIN_RUNS.values()))
-    stored = c["iterations"] * c["envs"] * c["steps"]
-    ring = run.replay
-    finite = all(np.isfinite(v) for lg in logs for v in lg.values()) and np.isfinite(ret)
-    log(f"[4 fused] halfcheetah_planar_fused.yaml B={cfg.batch_size} D={cfg.latent_dim} "
-        f"H={cfg.hidden_dim} L={cfg.score_num_layers} K={cfg.diffusion.num_diffusion_steps} "
-        f"ensemble {cfg.num_dynamics_ensemble}, posterior acting: {c['iterations']} iterations of "
-        f"{c['envs']} envs x {c['steps']} steps and {c['updates']} train_epoch updates (graph "
-        f"replays) from an empty ring; ring size {ring.host_size} pos {ring.host_pos} (device "
-        f"{int(ring.size)} / {int(ring.pos)}) for {stored} env steps stored; sweeps launched "
-        f"{counts[0]}, plain {counts[1]}; collect graph capture "
-        f"{run.collector.step_graph.capture_seconds:.2f} s; fused_eval {c['eval_envs']} envs "
-        f"cut to {c['eval_steps']} of "
-        f"{run.env.max_episode_steps} steps (the script's time): mean return {ret:.4f} in {eval_s:.2f} s "
-        f"(capture {evaluator.step_graph.capture_seconds:.2f} s); last metrics "
-        + json.dumps({k: round(v, 6) for k, v in logs[-1].items()}))
-    if not finite or (ring.host_size, ring.host_pos, int(ring.size), int(ring.pos)) != (
-            stored, stored, stored, stored) or counts != (0, 0):
-        raise RuntimeError("halfcheetah_planar_fused: non-finite metrics, a ring that does not "
-                           "hold the env steps stored, or a sweep")
-    out["cheetah"] = dict(logs=logs, eval_s=eval_s, run=run, evaluator=evaluator,
-                          capture_s=run.collector.step_graph.capture_seconds)
+    out["halfcheetah_planar_fused"] = fused_preset_check("[4 fused]", "halfcheetah_planar_fused",
+                                                         FUSED_CHEETAH)
     log(f"[4 fused] phase 4h in {time.perf_counter() - t0:.1f} s")
     return out
 
 
-def fused_times_phase(fused: dict, card: str) -> None:
-    """Phase 5, the fused loop: env steps/s of each collect of 4h (the
-    second collect, graph replays only) and the HalfCheetah preset's
-    iterations (``profiled_phase`` profiles them)."""
-    for label in ("Pendulum-v1 sweep, K=10", f"Pendulum-v1 warm start, K={FUSED_WARM_STEPS}",
-                  "HopperPlanar-v0", "Walker2dPlanar-v0"):
-        r = fused[label]
-        log(f"[5 times] fused collect {label}: {r['steps_per_s']:.1f} env steps/s (a collect of "
-            f"graph replays into the ring); first collect with the capture {r['first_s']:.3f} s, "
-            f"capture {r['capture_s']:.3f} s | {card}")
-    cheetah = fused["cheetah"]
-    for it, lg in enumerate(cheetah["logs"]):
-        log(f"[5 times] fused iteration {it} halfcheetah_planar_fused.yaml ({FUSED_CHEETAH['envs']} "
-            f"envs x {FUSED_CHEETAH['steps']} steps, {FUSED_CHEETAH['updates']} train_epoch "
-            f"updates): {lg['fused/env_steps_per_sec']:.2f} env steps/s, collect "
-            f"alone {lg['fused/collect_env_steps_per_sec']:.2f} env steps/s, "
-            f"{lg.get('fused/updates_per_sec', float('nan')):.3f} updates/s"
-            f"{' (with the captures)' if it == 0 else ''} | {card}")
-    log(f"[5 times] halfcheetah_planar_fused.yaml: the collect's step captured in "
-        f"{cheetah['capture_s']:.3f} s; eval of {FUSED_CHEETAH['eval_steps']} steps "
-        f"{cheetah['eval_s']:.3f} s | {card}")
+def fused_times_phase(results: dict, collects, presets: dict, card: str) -> None:
+    """Phase 5, the fused loop: env steps/s of each collect named in
+    ``collects`` (its second collect, graph replays only) with the capture's
+    seconds, and each preset's iterations and eval (``profiled_phase``
+    profiles them)."""
+    for label in collects:
+        r = results[label]
+        log(f"[5 times] fused collect {label} ({r['run'].args.num_envs} envs): "
+            f"{r['steps_per_s']:.1f} env steps/s (a collect of graph replays into the ring); "
+            f"first collect with the capture {r['first_s']:.3f} s, capture "
+            f"{r['capture_s']:.3f} s | {card}")
+    for preset, c in presets.items():
+        r = results[preset]
+        for it, lg in enumerate(r["logs"]):
+            log(f"[5 times] fused iteration {it} {preset}.yaml ({c['envs']} envs x {c['steps']} "
+                f"steps, {c['updates']} train_epoch updates): {lg['fused/env_steps_per_sec']:.2f} "
+                f"env steps/s, collect alone {lg['fused/collect_env_steps_per_sec']:.2f} env "
+                f"steps/s, {lg.get('fused/updates_per_sec', float('nan')):.3f} updates/s"
+                f"{' (with the captures)' if it == 0 else ''} | {card}")
+        log(f"[5 times] {preset}.yaml: the collect's step captured in {r['capture_s']:.3f} s; "
+            f"eval of {c['eval_envs']} envs x {c['eval_steps']} steps {r['eval_s']:.3f} s (capture "
+            f"{r['evaluator'].step_graph.capture_seconds:.3f} s) | {card}")
+
+
+def rigid3d_phase(dev, launches: dict) -> dict:
+    """Phase 4, ``[4 rigid3d]``: the 3D engine in the fused loop (see
+    ``main``). Adds the sweep launches of its collects to ``launches``;
+    returns what phase 5 reports."""
+    out = {}
+    t0 = time.perf_counter()
+    kernel = "denoise_sweep_v1_f32"
+    for name, (envs, steps) in RIGID3D_COLLECTS.items():
+        run = fused_run("--env", name, "--num-envs", str(envs), "--steps-per-iter", str(steps))
+        out[name] = fused_collect_check(dev, name, run, sweep=True, tag="[4 rigid3d]",
+                                        twin_tol=RIGID3D_TWIN_TOL[name])
+        launches[kernel] += out[name]["launches"]
+        width = 27 if name == "Ant3D-v0" else 376
+        if run.env.observation_dim != width:
+            raise RuntimeError(f"{name}: observation width {run.env.observation_dim}, "
+                               f"expected {width}")
+    for preset, c in RIGID3D_PRESETS.items():
+        out[preset] = fused_preset_check("[4 rigid3d]", preset, c)
+    log(f"[4 rigid3d] phase in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def profiled_phase(dev, card: str) -> None:
@@ -1496,6 +1584,8 @@ def profiled_phase(dev, card: str) -> None:
         "HalfCheetahPlanar-v0": fused_run("--config", str(path), "--num-envs", str(c["envs"]),
                                           "--steps-per-iter", str(c["steps"])),
     }
+    for name, (n, t) in RIGID3D_COLLECTS.items():
+        runs[name] = fused_run("--env", name, "--num-envs", str(n), "--steps-per-iter", str(t))
 
     def collect(run):
         run.env_states, run.policy_state, _ = train_fused.collect_and_store(
@@ -1510,7 +1600,7 @@ def profiled_phase(dev, card: str) -> None:
     epoch_graphs = [flagship._epoch_graphs, dreamer._epoch_graphs]
     captures = [g.captures for g in epoch_graphs]
     log(f"[5 profiled] set-up: the flagship's and the HalfCheetah learning preset's epoch "
-        f"graphs ({captures[0]} and {captures[1]} captured), the five collects' env steps "
+        f"graphs ({captures[0]} and {captures[1]} captured), the eight collects' env steps "
         f"captured, in {time.perf_counter() - t0:.1f} s")
 
     # -- the profiled replays
@@ -1586,8 +1676,9 @@ def profiled_phase(dev, card: str) -> None:
         if step["named_kernels"] != want:
             raise RuntimeError(f"{label}: {step['named_kernels']} sweep kernels in the trace of "
                                f"one replayed env step, expected {want}")
-    for label in pendulum:
+    for label in pendulum + ("Ant3D-v0",):
         run = runs[label]
+        envs, steps = run.args.num_envs, run.args.steps_per_iter
         prof = profile_ms(lambda: collect(run), 1, "denoise_sweep")
         log(f"[5 profiled] fused collect {label} (one collect of {steps} steps x {envs} envs, "
             f"graph replays): host {prof['host_ms']:.4f} ms, device {prof['device_ms']:.4f} ms "
@@ -1950,6 +2041,7 @@ def main() -> int:
         ("denoise_sweep_v1_f32", "fused_pendulum_warm", dict(collect_shape, steps=3)),
         ("denoise_sweep_v1_f32", "fused_hopper", dict(collect_shape, batch=512)),
         ("denoise_sweep_v1_f32", "fused_eval", dict(collect_shape, batch=64)),
+        ("denoise_sweep_v1_f32", "fused_ant3d", dict(collect_shape, batch=256)),
     ]
     summary = {}
     for kernel, label, shape in timed:
@@ -2047,8 +2139,12 @@ def main() -> int:
     # planar engine, train_fused).
     fused = fused_phase(dev, launches)
     t0 = time.perf_counter()
-    fused_times_phase(fused, card)
+    fused_times_phase(fused, FUSED_COLLECTS, {"halfcheetah_planar_fused": FUSED_CHEETAH}, card)
     log(f"[5 times] the fused loop's times in {time.perf_counter() - t0:.1f} s")
+
+    # [4 rigid3d], with its times: the 3D engine (envs/rigid3d.py) in the fused loop.
+    rigid = rigid3d_phase(dev, launches)
+    fused_times_phase(rigid, RIGID3D_COLLECTS, RIGID3D_PRESETS, card)
 
     # The profiled replays, in a process of their own (see profiled_phase).
     t0 = time.perf_counter()

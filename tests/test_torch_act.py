@@ -297,8 +297,8 @@ def test_port_imports_no_jax():
     cut to a tiny width: posterior acting with the EMA policy, the imagined
     actor-critic over the ensemble) the same; then hopper_planar_fused.yaml
     at a tiny width on the planar engine: one ``collect_and_store`` and one
-    ``fused_eval`` step. None of it loads a module of jax, flax or the JAX
-    package. The widths are tiny: it checks imports, not numbers."""
+    ``fused_eval`` step; then one step of Ant3D-v0 on the 3D engine. None of
+    it loads a module of jax, flax or the JAX package, mujoco or gymnasium. The widths are tiny: it checks imports, not numbers."""
     code = (
         "import sys\n"
         "import numpy as np, torch\n"
@@ -365,6 +365,9 @@ def test_port_imports_no_jax():
         "evaluator = EvalGraph(env, de.make_rollout_policy(agent.core, env, deterministic=True,\n"
         "    act_from_posterior=True), 2, 1)\n"
         "assert bool(torch.isfinite(train_fused.eval_return(agent, state, evaluator, g)))\n"
+        "env = de.make_device_env('Ant3D-v0', device='cpu')\n"
+        "s = env.step(env.reset(env.draw_reset(2, g)), torch.zeros(2, env.action_dim))\n"
+        "assert s.obs.shape == (2, 27) and bool(torch.isfinite(s.obs).all())\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "                ('jax', 'flax', 'active_inference_diffusion_tpu', 'mujoco', 'gymnasium'))\n"
         "assert not loaded, loaded\n"

@@ -263,7 +263,11 @@ def test_fused_eval_matches_jax():
 def test_make_device_env_names():
     assert isinstance(port_env("Pendulum-v1"), tenvs.Pendulum)
     assert port_env("HopperPlanar-v0").observation_dim == 11
-    for name, item in (("Ant3D-v0", "A9"), ("PendulumPixels-v0", "A11"),
+    for name, dims in (("Ant3D-v0", (27, 8)), ("Humanoid3D-v0", (376, 17)),
+                       ("HumanoidStandup3D-v0", (376, 17))):
+        env = port_env(name)
+        assert (env.observation_dim, env.action_dim) == dims, name
+    for name, item in (("Ant3DPixels-v0", "A11"), ("PendulumPixels-v0", "A11"),
                        ("HalfCheetah-v4", "A13")):
         with pytest.raises(NotImplementedError, match=item):
             tenvs.make_device_env(name, device=CPU)

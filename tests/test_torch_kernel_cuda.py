@@ -22,7 +22,9 @@ the score network's EMA. The fused collect's tests hold the collect and
 eval graphs (one captured env step, replayed) against the eager steps on
 the same draws: Pendulum with the sweep and with warm starts (one sweep
 launch per env step), the exploration scale written between collects,
-HopperPlanar's physics, and a step that cannot be captured.
+HopperPlanar's physics, a step that cannot be captured, Ant3D's collect
+with the sweep, and a Humanoid3D step that runs with no host sync and
+replays equal to its eager run.
 """
 
 import numpy as np
@@ -810,3 +812,60 @@ def test_a_collect_capture_that_fails_raises(cuda):
     states = env.reset(env.draw_reset(4, gen))
     with pytest.raises(RuntimeError, match="capturing the env step failed"):
         CollectGraph(env, Syncing(), 4, 2).collect(states, None, gen)
+
+
+def test_rigid3d_collect_graph_matches_the_eager_collect(cuda):
+    """Ant3D-v0, 16 envs: two collects of 4 steps with the sweep acting as
+    graph replays against the eager steps on the same draws; one sweep
+    launch per env step, none plain; the physics finite."""
+    from active_inference_diffusion_torch.envs import device_envs as de
+    from active_inference_diffusion_torch.envs.collect_graph import CollectGraph
+
+    env = de.make_device_env("Ant3D-v0")
+    _, policy = _fused_policy(cuda, env)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    states = env.reset(env.draw_reset(16, gen))
+    collector = CollectGraph(env, policy, 16, 4)
+    name = kernel_name("v1", torch.float32)
+    for _ in range(2):
+        snapshot, before = gen.get_state(), (LAUNCHES[name], PLAIN_RUNS[name])
+        first = de.EnvState(*[x.clone() for x in states.tensors()])
+        tr, states, _ = collector.collect(states, None, gen)
+        torch.cuda.synchronize()
+        assert (LAUNCHES[name] - before[0], PLAIN_RUNS[name] - before[1]) == (4, 0)
+        want, want_states, _ = _eager_collect(env, policy, first, None, snapshot, 16, 4)
+        for got, exp in zip(tr, want):
+            torch.testing.assert_close(got, exp, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(states.physics, want_states.physics, rtol=1e-6, atol=1e-6)
+        assert torch.isfinite(states.physics).all()
+    assert collector.captures == 1
+
+
+def test_humanoid_step_captures_with_no_host_sync(cuda):
+    """A Humanoid3D-v0 env step with autoreset runs with CUDA's sync debug
+    mode set to raise, then is captured and replayed: the replay equals the
+    eager step."""
+    from active_inference_diffusion_torch.envs import device_envs as de
+    from active_inference_diffusion_torch.envs.collect_graph import StepGraph
+
+    env = de.make_device_env("Humanoid3D-v0")
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    state = env.reset(env.draw_reset(8, gen))
+    action = torch.rand((8, env.action_dim), generator=gen, device=cuda) * 0.8 - 0.4
+    reset = env.draw_reset(8, gen)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        want, want_obs = env.step_autoreset(state, action, reset)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out = {}
+
+    def step():
+        out["state"], out["obs"] = env.step_autoreset(state, action, reset)
+
+    graph = StepGraph(step, cuda)
+    graph()
+    graph()
+    torch.testing.assert_close(out["obs"], want_obs, rtol=0, atol=0)
+    torch.testing.assert_close(out["state"].physics, want.physics, rtol=0, atol=0)
+    assert graph.graph is not None and graph.replays == 1
