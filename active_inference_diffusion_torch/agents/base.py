@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -80,22 +80,29 @@ class PartitionOptimizer:
     """``optax.chain(clip_by_global_norm(clip), adamw(lr, weight_decay))``
     over one partition's parameters. AdamW is ``torch.optim.AdamW``, which
     takes optax's rule: eps outside the square root, no eps_root, the
-    decoupled decay lr * wd * p taken with the update. ``schedule`` (update
-    count -> learning rate) replaces the constant rate. On a CUDA device
-    AdamW is ``capturable`` (its step counts on the device), so an update
-    can be captured in a CUDA graph; its moments and counts are made here,
-    before any capture, so they never live in a graph's memory pool."""
+    decoupled decay lr * wd * p taken with the update. ``schedule`` (a
+    ``CosineDecay`` of the update count) replaces the constant rate, as
+    optax evaluates it on the optimizer's own count. On a CUDA device AdamW
+    is ``capturable`` (its step counts on the device), so an update can be
+    captured in a CUDA graph; its moments and counts are made here, before
+    any capture, so they never live in a graph's memory pool. A scheduled
+    rate is a 0-d tensor on the parameters' device (``lr``) that each step
+    writes in place from AdamW's own count, so a captured update decays it
+    with no host write and the eager loop takes the same numbers."""
 
     def __init__(self, params: Sequence[nn.Parameter], lr: float, weight_decay: float,
-                 clip: float, schedule: Optional[Callable[[int], float]] = None):
+                 clip: float, schedule: Optional["CosineDecay"] = None):
         self.params = list(params)
         self.clip = clip
         self.schedule = schedule
         self.count = 0
         capturable = bool(self.params) and self.params[0].is_cuda
+        self.lr: Optional[torch.Tensor] = None
+        if schedule is not None:
+            self.lr = torch.tensor(lr, dtype=torch.float32, device=self.params[0].device)
         self.adamw = torch.optim.AdamW(
-            self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
-            capturable=capturable,
+            self.params, lr=lr if self.lr is None else self.lr, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=weight_decay, capturable=capturable,
         )
         for p in self.params:  # AdamW's own lazy initial state, made now
             self.adamw.state[p] = {
@@ -110,22 +117,25 @@ class PartitionOptimizer:
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
         for p, g in zip(self.params, clip_by_global_norm(grads, self.clip)):
             p.grad = g
-        if self.schedule is not None:
-            for group in self.adamw.param_groups:
-                group["lr"] = self.schedule(self.count)
+        if self.lr is not None:  # of the count before this update
+            self.lr.copy_(self.schedule(self.adamw.state[self.params[0]]["step"]))
         self.adamw.step()
         self.adamw.zero_grad(set_to_none=True)
         self.count += 1
 
 
-def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float):
-    """optax's ``cosine_decay_schedule``."""
+class CosineDecay:
+    """optax's ``cosine_decay_schedule``: init_value ((1 - alpha) (1 +
+    cos(pi min(count, decay_steps) / decay_steps)) / 2 + alpha) of a count
+    tensor, in float32 as optax takes it."""
 
-    def schedule(count: int) -> float:
-        frac = min(count, decay_steps) / decay_steps
-        return init_value * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * frac)) + alpha)
+    def __init__(self, init_value: float, decay_steps: int, alpha: float):
+        self.init_value, self.decay_steps, self.alpha = init_value, decay_steps, alpha
 
-    return schedule
+    def __call__(self, count: torch.Tensor) -> torch.Tensor:
+        frac = torch.clamp(count.to(torch.float32), max=self.decay_steps) / self.decay_steps
+        cosine = 0.5 * (1.0 + torch.cos(math.pi * frac))
+        return self.init_value * ((1.0 - self.alpha) * cosine + self.alpha)
 
 
 def epoch_chunks(num_updates: int, max_chunk: int) -> List[int]:
@@ -165,7 +175,7 @@ def make_optimizers(
             plr = lr * config.policy_lr_scale
             schedule = None
             if config.policy_lr_decay_steps:
-                schedule = cosine_decay_schedule(
+                schedule = CosineDecay(
                     plr, config.policy_lr_decay_steps, config.policy_lr_final_scale
                 )
             opts[name] = PartitionOptimizer(params, plr, 1e-5, clip, schedule)

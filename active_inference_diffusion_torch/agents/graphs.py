@@ -11,8 +11,10 @@ and its draws instead of some 5,000 kernel launches from Python.
   decides on the host step count: whether the MINE update runs (``step %
   epistemic_update_every``, as JAX's ``lax.cond`` chooses) and whether the
   policy anchor is past its warm-up (JAX multiplies it by a gate traced on
-  the step). Each is captured when its first update comes, and all share
-  one memory pool.
+  the step). A scheduled learning rate (``policy_lr_decay_steps``) is a
+  device tensor the update computes from AdamW's device-side count, so one
+  graph serves every step of the decay. Each is captured when its first
+  update comes, and all share one memory pool.
   Parameters, optimizer moments, the train state's tensors, the ring and
   the metric sums live outside it.
 - The draws of each update are made outside the graph from ``state.rng``
@@ -34,7 +36,9 @@ and its draws instead of some 5,000 kernel launches from Python.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -66,14 +70,30 @@ def on_side_stream(fn: Callable, device: torch.device):
         torch.cuda.current_stream(device).wait_stream(side)
 
 
+@contextlib.contextmanager
+def collector_off():
+    """Python's cyclic garbage collector held off. A dead cycle that holds
+    a CUDA graph (an agent or a collector no longer used, say) may be freed
+    whenever the collector runs, and a graph destroyed while a stream
+    captures invalidates that capture; so no collection during one."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def capture_counted(graph: torch.cuda.CUDAGraph, fn: Callable, pool=None
                     ) -> Tuple[Dict[str, int], Dict[str, int]]:
-    """Captures ``fn()`` into ``graph`` (in ``pool``). Returns what the
-    capture added to ``LAUNCHES`` and to ``PLAIN_RUNS``, which is what each
-    replay launches, and leaves both counts as they were before it."""
+    """Captures ``fn()`` into ``graph`` (in ``pool``), the collector off.
+    Returns what the capture added to ``LAUNCHES`` and to ``PLAIN_RUNS``,
+    which is what each replay launches, and leaves both counts as they
+    were before it."""
     counts = (dict(LAUNCHES), dict(PLAIN_RUNS))
     try:
-        with torch.cuda.graph(graph, pool=pool):
+        with collector_off(), torch.cuda.graph(graph, pool=pool):
             fn()
     finally:
         deltas = tuple({n: now[n] - before[n] for n in now if now[n] != before[n]}
@@ -93,13 +113,15 @@ def count_replay(launch_deltas: Dict[str, int], plain_deltas: Dict[str, int]) ->
 
 def _state_tensors(agent, state) -> List[torch.Tensor]:
     """Every tensor an update reads or writes in place, but the ring's and
-    the draws': the parameters, the optimizers' moments and counts, the
-    EMAs (score, slow critic, policy), the return scale and log_alpha, and
-    the train state's reassigned fields."""
+    the draws': the parameters, the optimizers' moments, counts and
+    scheduled rates, the EMAs (score, slow critic, policy), the return scale
+    and log_alpha, and the train state's reassigned fields."""
     out = list(agent.core.parameters())
     for opt in state.optimizers.values():
         for p in opt.params:
             out += [v for v in opt.adamw.state[p].values() if isinstance(v, torch.Tensor)]
+        if opt.lr is not None:
+            out.append(opt.lr)
     for ema in (state.ema_score, state.target_value, state.ema_policy or {}):
         out += list(ema.values())
     norm = state.reward_norm
@@ -150,10 +172,6 @@ class EpochGraphs:
         the sums of their metrics (the graphs' own buffers, overwritten by
         the next call)."""
         agent = self.agent
-        if any(opt.schedule is not None for opt in state.optimizers.values()):
-            raise NotImplementedError(
-                "train_epoch on the card with policy_lr_decay_steps: a captured update needs the "
-                "learning rate as a device tensor (ROADMAP A6)")
         key = self._key(state, replay_state, batch_size)
         if key != self.key:
             self.captured, self.sums, self.key = {}, None, key

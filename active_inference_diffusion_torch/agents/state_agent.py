@@ -11,23 +11,34 @@ live networks (``acting_modules``), as the JAX agent's ``_acting_params``
 substitutes them.
 
 One train update: reward normalisation; the beliefs of observations and
-next observations together (2B rows): one sweep without gradient (the
-sweep kernel on the card), or with ``posterior_beliefs`` a posterior sample
-inside the fused loss, so the posterior encoder learns from the
-reconstruction, reward and KL terms; the fused score+model loss (the ELBO
-terms, with the gradient penalty's gradient of a gradient, the dynamics MSE
-and the continuation BCE on stop-gradient latents) and its two AdamW
-updates; the score EMA and the time-importance update; the actor (the EFE,
-or with ``imagined_value_targets`` the imagined lambda objective against
-the slow critic), plus the policy anchor KL(pi || EMA pi) once
+next observations together (2B rows): one sweep without gradient (the sweep
+kernel on the card); or with ``ground_beliefs`` the sweep inside the fused
+loss (``scan_beliefs``, the JAX core's scan), so the reconstruction, KL and
+reward gradients reach the score network through the denoising chain; or
+with ``posterior_beliefs`` a posterior sample inside the fused loss, so the
+posterior encoder learns from the reconstruction, reward and KL terms; the
+fused score+model loss (the ELBO terms, with the gradient penalty's
+gradient of a gradient, the dynamics MSE and the continuation BCE on
+stop-gradient latents) and its two AdamW updates; the score EMA and the
+time-importance update; the actor (the EFE, or with
+``imagined_value_targets`` the imagined lambda objective against the slow
+critic), plus the policy anchor KL(pi || EMA pi) once
 ``policy_anchor_warmup_steps`` have passed, and its update; value
 regression on replay lambda-returns, or on the imagined returns with the
 slow-critic regulariser; every ``epistemic_update_every`` steps the MINE
 update; then the slow critic, the return scale, log_alpha (with
 ``auto_entropy``) and the EMA policy. Which of the MINE update and the
 anchor run is decided on the host step count (``update_kind``). Every draw
-of the update is in a ``TrainDraws``. ``ground_beliefs`` and faithful
-semantics raise ``NotImplementedError`` naming their ROADMAP item.
+of the update is in a ``TrainDraws``. Faithful semantics raises
+``NotImplementedError`` naming its ROADMAP item.
+
+The grounded sweep is the plain sweep under autograd on every device, by
+design: the sweep kernels have no backward pass, and the JAX package trains
+this flag through its XLA scan too (``tpu.use_pallas_denoiser`` is off by
+default and the kernel is never differentiated). On the card each such
+sweep counts in ``PLAIN_RUNS``, apart from the kernel's ``LAUNCHES``; the
+choice is made by the flag, never by a failed launch, and acting keeps
+launching the kernel.
 """
 
 from __future__ import annotations
@@ -82,6 +93,9 @@ class TrainDraws(NamedTuple):
     elbo: ElboDraws
     efe: EfeDraws  # the actor's imagined rollout: the EFE's or the imagined objective's
     mine: Optional[MineDraws]  # None on a step without the MINE update
+    # (K, 2B, D) N(0, I): the grounded sweep's per-step noise; None without
+    # ground_beliefs or with deterministic beliefs
+    sweep_noise: Optional[torch.Tensor] = None
 
     def to(self, device) -> "TrainDraws":
         return tree_to(self, device)
@@ -241,7 +255,6 @@ class DiffusionStateAgent(BaseAgent):
         """Raise for the training branches this port does not have yet."""
         cfg = self.config
         unported = {
-            "ground_beliefs": (cfg.ground_beliefs, "A4"),
             "faithful semantics": (cfg.semantics.mode == "faithful", "A4"),
         }
         for flag, (on, item) in unported.items():
@@ -259,17 +272,22 @@ class DiffusionStateAgent(BaseAgent):
 
     def draw_train(self, state: AgentTrainState, batch_size: int) -> TrainDraws:
         """The draws of one update from ``state.rng``: the beliefs' (the
-        sweep's start and seed, or the posterior's eps), the ELBO's, the
-        actor's rollout, and the MINE update's on a step that runs it."""
+        sweep's start and seed, or the posterior's eps; with stochastic
+        grounded beliefs also every step's noise), the ELBO's, the actor's
+        rollout, and the MINE update's on a step that runs it."""
         core, g, dev = self.core, state.rng, self.device
         start = core.draw_start(2 * batch_size, g)
+        sweep_noise = None
+        if self.config.ground_beliefs and not self.config.deterministic_beliefs:
+            sweep_noise = torch.randn((core.schedule.num_steps,) + tuple(start.noise.shape),
+                                      generator=g, device=dev)
         elbo = core.draw_elbo(batch_size, state.time_importance, g)
         efe = core.draw_efe(batch_size, g)
         mine = None
         if self.update_kind(state.step)[0]:
             mine = draw_mine(batch_size, core.latent_dim, MINE_SAMPLES,
                              core.epistemic_estimator.ntk_samples, g, dev)
-        return TrainDraws(start.noise, start.seed, elbo, efe, mine)
+        return TrainDraws(start.noise, start.seed, elbo, efe, mine, sweep_noise)
 
     def train_step(
         self, state: AgentTrainState, batch: Dict[str, torch.Tensor]
@@ -298,12 +316,18 @@ class DiffusionStateAgent(BaseAgent):
         both = torch.cat([obs, batch["next_observations"]], dim=0)
 
         # 1. The beliefs of observations and next observations: one sweep,
-        # no gradient; or posterior samples inside the fused loss.
+        # no gradient; or, inside the fused loss, the grounded sweep or
+        # posterior samples.
         phase = _Phases()
         if cfg.posterior_beliefs:
             phase("score_model")
             posterior = core.sample_posterior(both, core.posterior_eps(draws.belief_noise))
             latents, next_latents = posterior.chunk(2, dim=0)
+        elif cfg.ground_beliefs:
+            phase("score_model")
+            grounded = core.scan_beliefs(both, draws.belief_noise, draws.sweep_noise,
+                                         deterministic=cfg.deterministic_beliefs)
+            latents, next_latents = grounded.latent.chunk(2, dim=0)
         else:
             phase("beliefs")
             belief = core.beliefs_from_start(

@@ -26,7 +26,18 @@ MiB of trunk weights, decided once per core) and runs the plain sweep on
 the card where they do not; on the CPU it runs the plain sweep, bfloat16
 rounding included.
 ``tpu.use_pallas_denoiser`` chose between two TPU implementations and is
-not read here. Branches this port does not have yet raise
+not read here.
+
+``scan_beliefs`` is the sweep as the JAX core's ``lax.scan`` (its path
+without the kernel): the score network's trunk and p_sample per step, plain
+tensor ops under autograd, with every step's noise an explicit draw. It
+serves ``generate_beliefs(return_trajectory=True)``, which JAX also never
+gives to its kernel, and the train update's grounded beliefs
+(``ground_beliefs``), whose gradient runs back through the whole chain. The
+kernels have no backward pass (nor has the TPU kernel, which the JAX package
+never differentiates), so on the card that sweep is the plain one, chosen
+because a gradient is wanted and counted in ``PLAIN_RUNS``; acting keeps
+the kernel. Branches this port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -54,6 +65,7 @@ from ..models.policy import DiffusionConditionedPolicy, PolicyDist, sample_actio
 from ..models.score_network import OBS_DROPOUT, LatentScoreNetwork
 from ..models.value import ValueNetwork
 from ..ops.denoise import (
+    count_plain_run,
     fused_denoise_sweep,
     fused_denoise_sweep_v2,
     kernel_takes,
@@ -115,7 +127,7 @@ class BeliefInfo(NamedTuple):
     latent_mean: torch.Tensor  # (D,)
     latent_std: torch.Tensor  # (D,)
     reconstruction_error: torch.Tensor  # scalar; 0 unless computed
-    trajectory: Optional[torch.Tensor]  # always None in this port
+    trajectory: Optional[torch.Tensor]  # (K+1, B, D) with return_trajectory, else None
 
 
 class ActStart(NamedTuple):
@@ -402,6 +414,15 @@ class DiffusionActiveInference(nn.Module):
             )
         return ActStart(noise, seed, refine_noise)
 
+    def warm_start(self, noise: torch.Tensor, num_steps: int,
+                   z_init: Optional[torch.Tensor]) -> torch.Tensor:
+        """The sweep's start: ``noise``, or for a warm start ``z_init``
+        forward-noised with it to the truncation timestep k-1."""
+        if z_init is None:
+            return noise
+        t0 = torch.full((noise.shape[0],), num_steps - 1, dtype=torch.int64, device=self.device)
+        return dproc.q_sample(self.schedule, z_init, t0, noise)
+
     @torch.no_grad()
     def beliefs_from_start(
         self,
@@ -423,10 +444,7 @@ class DiffusionActiveInference(nn.Module):
         k = self.schedule.num_steps if num_steps is None else num_steps
         if k > self.schedule.num_steps:
             raise ValueError(f"num_steps={k} exceeds schedule length {self.schedule.num_steps}")
-        z0 = noise
-        if z_init is not None:
-            t0 = torch.full((noise.shape[0],), k - 1, dtype=torch.int64, device=self.device)
-            z0 = dproc.q_sample(self.schedule, z_init, t0, noise)
+        z0 = self.warm_start(noise, k, z_init)
 
         net = self.score_network
         obs_emb = net.obs_embedding(observation)
@@ -442,6 +460,14 @@ class DiffusionActiveInference(nn.Module):
             num_steps=k, num_layers=self.config.score_num_layers, deterministic=deterministic,
         )
 
+        return self._belief_info(latent, observation, compute_reconstruction)
+
+    def _belief_info(self, latent: torch.Tensor, observation: torch.Tensor,
+                     compute_reconstruction: bool,
+                     trajectory: Optional[torch.Tensor] = None) -> BeliefInfo:
+        """The sweep's result with its batch mean and standard deviation
+        (ddof 1, 0 for one row) and, with ``compute_reconstruction``, the
+        decoded belief's mean squared error against the observation."""
         latent_mean = latent.mean(dim=0)
         if latent.shape[0] > 1:
             latent_std = latent.std(dim=0, correction=1)
@@ -456,8 +482,38 @@ class DiffusionActiveInference(nn.Module):
             latent_mean=latent_mean,
             latent_std=latent_std,
             reconstruction_error=reconstruction_error,
-            trajectory=None,
+            trajectory=trajectory,
         )
+
+    def scan_beliefs(
+        self,
+        observation: torch.Tensor,
+        z0: torch.Tensor,
+        step_noise: Optional[torch.Tensor],
+        num_steps: Optional[int] = None,
+        deterministic: bool = False,
+        return_trajectory: bool = False,
+    ) -> dproc.DenoiseResult:
+        """The sweep as the JAX core's scan, from ``z0`` with the per-step
+        standard normals ``step_noise`` (K, B, D) (None when
+        ``deterministic``): the observation embedding and the K time
+        embeddings once, then per step the score network's trunk on their
+        sum and p_sample. Autograd follows it, so a loss on the latents
+        reaches the score network through every step. On a CUDA device the
+        run counts in ``PLAIN_RUNS``."""
+        k = self.schedule.num_steps if num_steps is None else num_steps
+        if k > self.schedule.num_steps:
+            raise ValueError(f"num_steps={k} exceeds schedule length {self.schedule.num_steps}")
+        net = self.score_network
+        obs_emb = net.obs_embedding(observation)
+        timesteps = torch.arange(k - 1, -1, -1, device=self.device)
+        t_embs = net.time_embedding(timesteps.to(observation.dtype), continuous=False)
+        result = dproc.reverse_sweep(
+            self.schedule, lambda i, z: net.trunk(z, obs_emb + t_embs[i][None, :]), z0,
+            step_noise, k, deterministic, return_trajectory,
+        )
+        count_plain_run(self.sweep_variant, self.sweep_dtype, self.device)
+        return result
 
     def generate_beliefs(
         self,
@@ -469,14 +525,25 @@ class DiffusionActiveInference(nn.Module):
         compute_reconstruction: bool = True,
         z_init: Optional[torch.Tensor] = None,
     ) -> BeliefInfo:
-        """Draw the start, then run ``beliefs_from_start``."""
-        if return_trajectory:
-            raise NotImplementedError("return_trajectory is not ported yet (ROADMAP A4)")
+        """Draw the start, then run ``beliefs_from_start``; with
+        ``return_trajectory`` also draw every step's noise and run
+        ``scan_beliefs``, whose trajectory (K+1, B, D) holds the start and
+        each step's latents."""
         start = self.draw_start(observation.shape[0], generator)
-        return self.beliefs_from_start(
-            observation, start.noise, start.seed, num_steps, deterministic, z_init,
-            compute_reconstruction,
-        )
+        if not return_trajectory:
+            return self.beliefs_from_start(
+                observation, start.noise, start.seed, num_steps, deterministic, z_init,
+                compute_reconstruction,
+            )
+        k = self.schedule.num_steps if num_steps is None else num_steps
+        step_noise = torch.randn((k,) + tuple(start.noise.shape), generator=generator,
+                                 device=self.device)
+        with torch.no_grad():
+            z0 = self.warm_start(start.noise, k, z_init)
+            result = self.scan_beliefs(observation, z0, step_noise, k, deterministic,
+                                       return_trajectory=True)
+            return self._belief_info(result.latent, observation, compute_reconstruction,
+                                     result.trajectory)
 
     # -- expected free energy ----------------------------------------------
 

@@ -1,8 +1,8 @@
 """Diffusion math as plain tensor functions: the learnable continuous-time
 process of the ELBO and the discrete forward and reverse steps of the sweep.
 
-Counterpart of ``active_inference_diffusion_tpu/core/diffusion.py:26-129``.
-The learnable quantities (latent prior mean and log-std, log-SNR bounds)
+Counterpart of ``active_inference_diffusion_tpu/core/diffusion.py:26-183``,
+``generate_latents`` (:137-183) included. The learnable quantities (latent prior mean and log-std, log-SNR bounds)
 are the parameters of a small module, ``DiffusionParams`` (the JAX
 ``diffusion`` parameter group). Noise is an explicit argument, as in the JAX
 package: the caller draws it from its own ``torch.Generator``.
@@ -11,7 +11,7 @@ package: the caller draws it from its own ``torch.Generator``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -119,3 +119,63 @@ def p_sample(
     var = extract(schedule.posterior_variance, t, z_t.ndim)
     nonzero = (t > 0).reshape((-1,) + (1,) * (z_t.ndim - 1)).to(z_t.dtype)
     return mean + nonzero * torch.sqrt(var) * noise
+
+
+class DenoiseResult(NamedTuple):
+    latent: torch.Tensor  # (B, D) the final latent z_0
+    trajectory: Optional[torch.Tensor]  # (K+1, B, D) the start and every step's z, if asked
+
+
+def reverse_sweep(
+    schedule: DiffusionSchedule,
+    score_at: Callable[[int, torch.Tensor], torch.Tensor],
+    z_init: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    num_steps: int,
+    deterministic: bool = False,
+    return_trajectory: bool = False,
+) -> DenoiseResult:
+    """``num_steps`` p_sample steps from ``z_init`` over the schedule's
+    tail t = K-1..0, as the JAX package's reverse ``lax.scan``: step i
+    takes the score ``score_at(i, z)`` and the standard normals
+    ``noise[i]`` ((K, B, D); None when ``deterministic``). Plain tensor
+    ops, so autograd follows the whole chain."""
+    if noise is None and not deterministic:
+        raise ValueError("a stochastic sweep needs its per-step noise")
+    b = z_init.shape[0]
+    z = z_init
+    trajectory = [z_init]
+    for i in range(num_steps):
+        t = torch.full((b,), num_steps - 1 - i, dtype=torch.int64, device=z.device)
+        z = p_sample(schedule, z, t, score_at(i, z), None if deterministic else noise[i],
+                     deterministic=deterministic)
+        if return_trajectory:
+            trajectory.append(z)
+    return DenoiseResult(z, torch.stack(trajectory) if return_trajectory else None)
+
+
+def generate_latents(
+    schedule: DiffusionSchedule,
+    score_fn: Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]], torch.Tensor],
+    z_init: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    observation: Optional[torch.Tensor] = None,
+    num_steps: Optional[int] = None,
+    deterministic: bool = False,
+    return_trajectory: bool = False,
+) -> DenoiseResult:
+    """Reverse-diffusion belief generation: ``score_fn(z, t_float,
+    observation)`` at each step of the schedule's tail of ``num_steps``
+    (default the whole schedule), from the start ``z_init`` (B, D) with the
+    per-step standard normals ``noise`` (K, B, D), the draws the JAX
+    function takes from its key's two halves."""
+    k = schedule.num_steps if num_steps is None else num_steps
+    if k > schedule.num_steps:
+        raise ValueError(f"num_steps={k} exceeds schedule length {schedule.num_steps}")
+    b = z_init.shape[0]
+
+    def score_at(i: int, z: torch.Tensor) -> torch.Tensor:
+        t = torch.full((b,), float(k - 1 - i), dtype=z.dtype, device=z.device)
+        return score_fn(z, t, observation)
+
+    return reverse_sweep(schedule, score_at, z_init, noise, k, deterministic, return_trajectory)

@@ -41,10 +41,14 @@ def update_time_importance(
     weights: torch.Tensor, t: torch.Tensor, losses: torch.Tensor, ema: float = 0.99
 ) -> torch.Tensor:
     """Each bin touched by ``t`` takes one EMA step toward the mean of its
-    samples' losses; the others keep their weight."""
+    samples' losses; the others keep their weight. The per-bin sums are a
+    one-hot product reduced in a fixed order, not ``index_add_``, whose
+    atomics on the card sum in no fixed order: a replayed update and a
+    resumed run then reproduce the eager one bit for bit."""
     bins = torch.clamp((t * (NUM_BINS - 1)).to(torch.int64), 0, NUM_BINS - 1)
-    sums = torch.zeros_like(weights).index_add_(0, bins, losses)
-    counts = torch.zeros_like(weights).index_add_(0, bins, torch.ones_like(losses))
+    onehot = (bins[:, None] == torch.arange(NUM_BINS, device=bins.device)).to(losses.dtype)
+    sums = (onehot * losses[:, None]).sum(dim=0)
+    counts = onehot.sum(dim=0)
     touched = counts > 0
     mean_loss = torch.where(touched, sums / torch.clamp(counts, min=1.0), 0.0)
     return torch.where(touched, ema * weights + (1.0 - ema) * mean_loss, weights)

@@ -105,9 +105,10 @@ KERNELS = {
 SWEEP_WEIGHT_BUDGET = 48 * 2**20
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-# Plain sweeps run on a CUDA device, for a width beyond ``kernel_takes``
-# (``plain_denoise_sweep``), counted per (variant, weight type) apart from
-# LAUNCHES.
+# Plain sweeps run on a CUDA device, counted per (variant, weight type) apart
+# from LAUNCHES: for a width beyond ``kernel_takes`` (``plain_denoise_sweep``),
+# and where a gradient or the trajectory is wanted (the core's
+# ``scan_beliefs``).
 PLAIN_RUNS: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -884,9 +885,15 @@ def plain_denoise_sweep(
     out = denoise_sweep_reference(
         schedule, weights, z0, obs_emb, t_embs, seed, num_steps, num_layers, deterministic
     )
-    if z0.device.type == "cuda":
-        PLAIN_RUNS[kernel_name(weights.variant, weights.dtype)] += 1
+    count_plain_run(weights.variant, weights.dtype, z0.device)
     return out
+
+
+def count_plain_run(variant: str, dtype: torch.dtype, device: torch.device) -> None:
+    """Counts one plain sweep of (variant, weight type) in ``PLAIN_RUNS``
+    where it ran on a CUDA device."""
+    if device.type == "cuda":
+        PLAIN_RUNS[kernel_name(variant, dtype)] += 1
 
 
 def fused_denoise_sweep(

@@ -5,6 +5,7 @@ train update on one card, with no host env.
         [--env NAME] [--num-envs 64] [--steps-per-iter 32]
         [--updates-per-iter 8] [--iterations 50] [--train-epoch]
         [--eval-every N] [--warm-start-steps K] [--device cpu]
+        [--checkpoint-dir DIR [--save-replay]] [--resume DIR/best|DIR/final]
 
 Counterpart of ``examples/train_fused.py``: ``build_run_config`` (with the
 precedence ``tests/test_train_fused_config.py`` fixes), the exploration
@@ -12,7 +13,16 @@ schedule ``exploration_eps``, ``collect_and_store`` (collect with the device
 envs, flatten, add to the device replay ring with the terminations only) and
 the iteration loop (``train_epoch`` with ``--train-epoch``, else
 ``train_step`` on ``replay_sample``), with ``fused_eval`` every
-``--eval-every`` iterations and a JSONL log under ``--log-dir``. Without
+``--eval-every`` iterations and a JSONL log under ``--log-dir``, and the
+checkpoint flow of the JAX script (``utils/checkpoints.py``): with
+``--checkpoint-dir`` a ``best`` checkpoint at each eval that beats the best
+so far and a ``final`` one at the end (``--save-replay`` adds the ring to
+both); with ``--resume`` the checkpoint's score-target convention adopted
+before the agent is built, the agent, train state and (when saved) ring
+restored, ``total_steps`` and the best eval carried on, and without a saved
+ring ``--resume-refill-steps`` env steps collected by the resumed policy
+with no updates. The env states and the run's generator restart from
+``--seed``, as in the JAX script. Without
 ``--config`` it trains on Pendulum-v1 with the sweep acting; with a planar
 preset (``examples/configs/*_planar_fused.yaml``) on the planar engine; with
 a 3D preset (``ant3d_fused*.yaml``, ``humanoid3d_fused.yaml``,
@@ -23,10 +33,8 @@ package; ``tpu.remat_score_network`` changes nothing here (in JAX a
 
 It runs on the CUDA device unless ``--device cpu`` is given; there each
 collect step and each eval step is a replayed CUDA graph
-(``envs/collect_graph.py``) and each ``--train-epoch`` update too. The JAX
-script's checkpoints (``--checkpoint-dir``, ``--resume``, ``--save-replay``,
-``--resume-refill-steps``) raise naming ROADMAP A8, ``--video-every`` naming
-A12, and ``--ground-beliefs`` raises through ``check_train_supported``.
+(``envs/collect_graph.py``) and each ``--train-epoch`` update too.
+``--video-every`` raises naming ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from .envs.device_envs import (
     make_rollout_policy,
     make_warm_rollout_policy,
 )
+from .utils.checkpoints import adopt_checkpoint_semantics, load_checkpoint, save_checkpoint
 from .utils.logger import Logger
 
 ENVS = ["Pendulum-v1", "PointMass2D-v0", "Reacher2Link-v0", "HalfCheetah-v4", "Hopper-v4",
@@ -228,22 +237,27 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--config", default=None,
                    help="YAML config; the agent-level flags above are then ignored")
     p.add_argument("--log-dir", default="logs")
-    # the JAX script's checkpoint and video flags: not ported yet
-    p.add_argument("--checkpoint-dir", default=None)
-    p.add_argument("--resume", default=None)
-    p.add_argument("--save-replay", action="store_true")
-    p.add_argument("--resume-refill-steps", type=int, default=None)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save a 'best' checkpoint whenever the eval improves and a 'final' one "
+                        "at the end (requires --eval-every)")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint (dir, or dir/best) to restore the train state from; the step "
+                        "count and the best eval continue from its meta, a ring saved with "
+                        "--save-replay is restored, else the ring refills first")
+    p.add_argument("--save-replay", action="store_true",
+                   help="checkpoint the device replay ring too")
+    p.add_argument("--resume-refill-steps", type=int, default=8192,
+                   help="on --resume without a saved ring, collect this many env steps with "
+                        "the resumed policy (no updates) before training (0 = off)")
     p.add_argument("--video-every", type=int, default=0)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.checkpoint_dir and not args.eval_every:
+        p.error("--checkpoint-dir requires --eval-every (best-eval saves)")
+    return args
 
 
 def check_flags(args) -> None:
     """Raise for the JAX script's flags this port does not have yet."""
-    for flag, on in (("--checkpoint-dir", args.checkpoint_dir), ("--resume", args.resume),
-                     ("--save-replay", args.save_replay),
-                     ("--resume-refill-steps", args.resume_refill_steps is not None)):
-        if on:
-            raise NotImplementedError(f"{flag}: checkpoints are not ported yet (ROADMAP A8)")
     if args.video_every:
         raise NotImplementedError("--video-every: the episode renderer is not ported yet "
                                   "(ROADMAP A12)")
@@ -265,21 +279,35 @@ class FusedRun:
     env_states: object
     policy_state: object = None
     total_steps: int = 0
+    best_eval: float = float("-inf")
+    restored_replay: bool = False
 
 
 def build_run(args) -> FusedRun:
     """The env, agent (initialised from ``args.seed``), ring, collect and
-    eval loops, generator and first env states of a run."""
+    eval loops, generator and first env states of a run; with
+    ``--resume`` the checkpoint's convention adopted first, then its agent,
+    train state and ring (when saved) restored, and its step count and best
+    eval carried on."""
     check_flags(args)
     device = resolve_device(args.device)
     args.device = device
     env, env_name, config, training_config = build_run_config(args)
+    if args.resume:  # before the agent: its update takes the convention
+        adopt_checkpoint_semantics(args.resume, config)
     agent = DiffusionStateAgent(env.observation_dim, env.action_dim, config, training_config,
                                 device=device)
     agent.check_train_supported()
     state = agent.init_train_state(args.seed)
     replay = replay_init(training_config.buffer_size, (env.observation_dim,), env.action_dim,
                          device=device)
+    meta, restored = {}, False
+    if args.resume:
+        state, meta = load_checkpoint(args.resume, agent, state, replay_template=replay)
+        restored = meta.pop("replay_state", None) is not None
+        print(f"resumed from {args.resume}: total_steps={meta.get('total_steps')} "
+              f"eval_return={meta.get('eval_return')} replay="
+              f"{f'restored (size {replay.host_size})' if restored else 'fresh'}", flush=True)
     if args.warm_start_steps:
         if config.act_from_posterior:
             raise SystemExit("--warm-start-steps is meaningless with act_from_posterior "
@@ -301,9 +329,13 @@ def build_run(args) -> FusedRun:
     policy_state = None
     if args.warm_start_steps:
         policy_state = init_warm_state(args.num_envs, config.latent_dim, generator)
+    best = meta.get("eval_return")
     return FusedRun(args, env, env_name, agent, state, replay,
                     CollectGraph(env, policy, args.num_envs, args.steps_per_iter), evaluator,
-                    generator, env_states, policy_state)
+                    generator, env_states, policy_state,
+                    total_steps=int(meta.get("total_steps", 0)),
+                    best_eval=float("-inf") if best is None else float(best),
+                    restored_replay=restored)
 
 
 def _sync(device) -> None:
@@ -345,17 +377,44 @@ def iterate(run: FusedRun, it: int) -> dict:
     if run.evaluator is not None and (it % args.eval_every == 0 or it == args.iterations - 1):
         log["fused/eval_return"] = float(eval_return(agent, run.state, run.evaluator,
                                                      run.generator))
+        if args.checkpoint_dir and log["fused/eval_return"] > run.best_eval:
+            run.best_eval = log["fused/eval_return"]
+            save(run, "best")
     return log
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    args = parse_args(argv)
-    run = build_run(args)
-    config = run.agent.config
-    print(f"fused training: env={run.env_name} obs={run.env.observation_dim} "
-          f"act={run.env.action_dim} latent={config.latent_dim} hidden={config.hidden_dim} "
-          f"ensemble={config.num_dynamics_ensemble} device={args.device}", flush=True)
+def save(run: FusedRun, name: str) -> str:
+    """The run's ``name`` checkpoint under ``--checkpoint-dir``, with the
+    ring under ``--save-replay`` and the best eval and env in its meta."""
+    args, agent = run.args, run.agent
+    return save_checkpoint(
+        args.checkpoint_dir, agent, run.state, step=run.total_steps, config=agent.config,
+        training_config=agent.training_config, keep_latest_alias=False, name=name,
+        replay_state=run.replay if args.save_replay else None,
+        extra_meta={"eval_return": run.best_eval, "env": run.env_name})
+
+
+def refill(run: FusedRun) -> None:
+    """After a resume without a saved ring: collect with the resumed policy,
+    no updates, until the ring holds ``--resume-refill-steps`` (at most its
+    capacity) env steps."""
+    target = min(run.args.resume_refill_steps, run.agent.training_config.buffer_size)
+    print(f"resume refill: collecting ~{target} env steps (no updates)", flush=True)
+    while run.replay.host_size < target:
+        run.env_states, run.policy_state, _ = collect_and_store(
+            run.agent, run.state, run.collector, run.replay, run.env_states, run.policy_state,
+            run.generator, exploration_eps(run.agent.training_config, run.total_steps))
+        run.total_steps += run.args.num_envs * run.args.steps_per_iter
+
+
+def train(run: FusedRun) -> FusedRun:
+    """The run's loop: the refill after a resume without a saved ring,
+    ``--iterations`` iterations logged to ``--log-dir``, and the ``final``
+    checkpoint."""
+    args = run.args
     logger = Logger(experiment_name=f"fused_{run.env_name}", log_dir=args.log_dir)
+    if args.resume and not run.restored_replay and args.resume_refill_steps:
+        refill(run)
     for it in range(args.iterations):
         log = iterate(run, it)
         logger.log(log, run.total_steps)
@@ -365,6 +424,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"[iter {it}] steps={run.total_steps} "
                   f"mean_step_reward={log['fused/mean_step_reward']:.3f} "
                   f"steps/s={log['fused/env_steps_per_sec']:.0f}" + eval_str, flush=True)
+    if args.checkpoint_dir:  # whatever the evals: a run that never beat its best resumes too
+        save(run, "final")
+        print(f"final checkpoint saved at step {run.total_steps}", flush=True)
+    return run
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = parse_args(argv)
+    run = build_run(args)
+    config = run.agent.config
+    print(f"fused training: env={run.env_name} obs={run.env.observation_dim} "
+          f"act={run.env.action_dim} latent={config.latent_dim} hidden={config.hidden_dim} "
+          f"ensemble={config.num_dynamics_ensemble} device={args.device}", flush=True)
+    train(run)
     print("done", flush=True)
     return 0
 

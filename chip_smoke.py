@@ -129,6 +129,27 @@ Phases:
    and 64 ``train_epoch`` updates from an empty ring, and one iteration of
    ant3d_fused.yaml, each with 4h's preset checks and an eval of 16 envs
    cut to 100 of its 1000 steps for chip time.
+   j. ``[4 ground]`` (``ground_phase``): halfcheetah_state_tuned.yaml (grounded
+   beliefs) from its file at its published widths (latent 32, hidden 128, 6 blocks,
+   K=15, batch 128) and HalfCheetah-v4's dimensions: one update with explicit draws
+   (the sweep's start and every step's noise) against the CPU twin, its
+   differentiated sweep of 256 rows one plain run (``PLAIN_RUNS``) and no kernel
+   launch; steps 0-9 as graph replays against the eager loop; a copy with
+   ``policy_lr_decay_steps`` 4 over steps 0-5, the policy's rate (a device tensor
+   in the graph) and parameters step by step; one ``act`` of the trained agent (one
+   v1-f32 launch); ``train_fused`` with the preset on HalfCheetahPlanar-v0, its
+   collect checked as 4h's (the v1-f32 kernel at B=64, K=15: one launch an env
+   step, graph against the eager loop, card against the CPU twin at 1e-3), then 2
+   iterations of 64 envs x 16 steps and 64 ``train_epoch`` updates; C5: the
+   Humanoid family's env steps in float64 and float32 on the card against the CPU
+   from the same states and actions.
+   k. ``[4 resume]`` (``resume_phase``): ``train_fused`` with the tuned preset on
+   Pendulum-v1 and ``--checkpoint-dir --eval-every 1 --save-replay`` for 2
+   iterations, a ``--resume`` of its ``final`` checkpoint (every tensor of the
+   train state, the generator and the ring equal to the saved run's, the step
+   count and best eval carried), the next update of both runs on the same ring
+   and draws (equal), one iteration of the resumed run, and a resume without the
+   ring that refills it with no update.
 5. times: each kernel against its plain version at its main path's shape
    (CUDA events), and at the other shapes of the timed list; for every row
    the plain version captured once in a CUDA graph and replayed
@@ -142,11 +163,11 @@ Phases:
    ``train_step`` at the flagship, batch 256, v1 and v2: median of 10
    (host clock, synchronised) after 3 warm-up steps.
    ``train_epoch`` at the flagship, v1 (``epoch_times_phase``): the eager
-   loop against graph replays, 256 updates each in blocks of 16, in turns
+   loop against graph replays, 128 updates each in blocks of 16, in turns
    (eager, graph, graph, eager): median ms per update and updates/s.
    The HalfCheetah learning preset (``dreamer_times_phase``): ``act``
    latency at batch 16 and 256, eval and collect; ``train_epoch`` at batch
-   128, the eager loop against graph replays, 128 updates an arm in blocks
+   128, the eager loop against graph replays, 64 updates an arm in blocks
    of 16, in turns.
    The fused loop (``fused_times_phase``): env steps/s of each collect of
    4h (its second collect, graph replays only), the capture's seconds; the
@@ -163,7 +184,8 @@ Phases:
    sweep kernel where the sweep acts, none in the HalfCheetah preset's
    step; the 3D collects' steps too) and one collect of each Pendulum run
    and of the Ant3D run (one sweep kernel an env step, the sweep's share
-   of the device time, the busy share).
+   of the device time, the busy share). A trace can lose events, so a
+   session whose count of sweep kernels misses runs again (``traced``).
 6. the kernel summary line, the card line, and the result line.
 """
 
@@ -171,6 +193,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -229,6 +252,8 @@ PARITY_SHAPES = [
     ("denoise_sweep_v1_f32", "fused_eval", 64, 16, 64, 2, 10, 10),
     # the Ant3D collect (bench.py:1036-1089): 256 envs at train_fused's defaults
     ("denoise_sweep_v1_f32", "fused_ant3d", 256, 16, 64, 2, 10, 10),
+    # halfcheetah_state_tuned.yaml's collect on HalfCheetahPlanar-v0: 64 envs, K=15
+    ("denoise_sweep_v1_f32", "tuned_collect", 64, 32, 128, 6, 15, 15),
 ]
 # The widths C1 found refused, at the config's 6 blocks. (latent, hidden,
 # compute_dtype); batch 8, K=100 (the halfcheetah_state.yaml schedule; the
@@ -265,22 +290,22 @@ TRAIN_TIMED, TRAIN_WARMUP = 10, 3
 # that it wraps once; graph replays held against the eager loop over steps 0-9
 # (MINE at 0 and 5) per variant; one profiled epoch of 10 replays; a chunked
 # epoch of 300 updates (chunks of 150 and 150 at epoch_chunk_updates 256); the
-# timed arms, 256 updates each in blocks of 16, in turns.
+# timed arms, 128 updates each in blocks of 16, in turns.
 RING_CAPACITY, RING_FILL, RING_BLOCK = 100_000, 120_000, 10_000
 EPOCH_COMPARED, EPOCH_PROFILED, EPOCH_CHUNKED = 10, 10, 300
-EPOCH_TIMED, EPOCH_BLOCK = 256, 16
+EPOCH_TIMED, EPOCH_BLOCK = 128, 16
 # The learning presets (examples/configs/*_state_dreamer.yaml) at their
 # published widths: latent 32, hidden 128, 6 DiT blocks, K=15, batch 128,
 # 5 dynamics members, EFE horizon 5 x 10 trajectories; the environments'
 # (observation, action) dimensions: HalfCheetah-v4, Hopper-v4 and
 # Walker2d-v4. Steps 0-9 graph against eager per preset, and Hopper again with the anchor's
 # warm-up cut to 5 steps; acting at num_parallel_envs (16) and 256; the
-# timed epoch 128 updates an arm in blocks of 16.
+# timed epoch 64 updates an arm in blocks of 16.
 DREAMER_SHAPES = {"halfcheetah": (FLAGSHIP_OBS, FLAGSHIP_ACT), "hopper": (11, 3),
                   "walker2d": (17, 6)}
 DREAMER_GATE_STEP = 5
 DREAMER_ACT_BATCHES = (16, 256)
-DREAMER_TIMED = 128
+DREAMER_TIMED = 64
 # The fused collect+train loop (train_fused, python -m
 # active_inference_diffusion_torch.train_fused): bench.py's shapes. Pendulum-v1
 # at the entry point's flag defaults (latent 16, hidden 64, 2 blocks, K=10,
@@ -315,17 +340,45 @@ FUSED_GRAPH_TOL, FUSED_TWIN_TOL = (1e-6, 1e-6), (1e-3, 1e-3)
 # wrenches, whose stiffness turns float32 rounding of the state into ~1e-3
 # of the force after one step (tests/test_torch_rigid3d.py, float32 against
 # float64), and card and CPU round differently (1.7e-3 relative for
-# HumanoidStandup3D at 64 envs over steps 0-1 on an H100).
+# HumanoidStandup3D at 64 envs over steps 0-1 on an H100); that float32 check
+# passes on the states the collect visits, and on seeded random actions C5 reads
+# up to 4.4x the 1e-2. So their env steps are also held in float64 at
+# RIGID3D_F64_TOL, card against CPU from the first collect's own start states and
+# actions over its first C5_STEPS steps, where the two compute the same function:
+# that check tells a fault from rounding; the float32 one is reported beside it.
 RIGID3D_COLLECTS = {"Ant3D-v0": (256, 16), "Humanoid3D-v0": (64, 8),
                     "HumanoidStandup3D-v0": (64, 8)}
 RIGID3D_TWIN_TOL = {"Ant3D-v0": FUSED_TWIN_TOL, "Humanoid3D-v0": (1e-2, 1e-2),
                     "HumanoidStandup3D-v0": (1e-2, 1e-2)}
+RIGID3D_F64_TOL = (1e-9, 1e-9)
 RIGID3D_PRESETS = {
     "humanoid3d_fused": dict(envs=64, steps=16, updates=64, iterations=2, eval_envs=16,
                              eval_steps=100),
     "ant3d_fused": dict(envs=64, steps=16, updates=64, iterations=1, eval_envs=16,
                         eval_steps=100),
 }
+# [4 ground]: examples/configs/halfcheetah_state_tuned.yaml (grounded beliefs) at its
+# published widths (latent 32, hidden 128, 6 blocks, K=15, batch 128, so the
+# differentiated sweep covers 2 x 128 rows) and HalfCheetah-v4's dimensions: one
+# update against the CPU twin, steps 0-9 as graph replays against the eager loop,
+# a copy with policy_lr_decay_steps=TUNED_DECAY_STEPS over steps 0-5 (its decay ends
+# at step 4), rate and parameters step by step; then train_fused on
+# HalfCheetahPlanar-v0, whose collect launches the v1-f32 kernel at B=64, K=15, in
+# the README's loop shape for TUNED_FUSED["iterations"] iterations. The C5 check:
+# the Humanoid family's env steps in float64 and float32 on the card against the
+# CPU on the same states and actions, C5_ENVS envs over C5_STEPS steps, at
+# C5_TOL (float64) and at 4h's 1e-3 (float32, reported).
+TUNED = "halfcheetah_state_tuned"
+TUNED_DECAY_STEPS, TUNED_DECAY_COMPARED = 4, 6
+TUNED_FUSED = dict(envs=64, steps=16, updates=64, iterations=2)
+GROUND_TIMED, GROUND_PROFILED = 32, 3  # its timed arms (eager, graphs); profiled replays
+C5_ENVS, C5_STEPS, C5_TOL = 16, 4, (1e-9, 1e-9)
+# [4 resume]: train_fused with the tuned preset on Pendulum-v1 (its sweep acts at
+# K=15 in the collect and the eval), 2 iterations saving best and final with the
+# ring, a resume of final for one iteration, and a resume without the ring that
+# refills RESUME_REFILL env steps.
+RESUME_LOOP = dict(envs=64, steps=16, updates=8, eval_envs=16)
+RESUME_REFILL = 2048
 # Kernel vs plain sweep, elementwise |kernel - plain| <= atol + rtol |plain|.
 # float32: another summation order, compounded over up to 100 dependent
 # steps of 6 blocks. bfloat16 weights: the same rounding sites on both
@@ -433,8 +486,10 @@ def graph_ms(fn, calls: int) -> float:
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
+    from active_inference_diffusion_torch.agents.graphs import collector_off
+
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_off(), torch.cuda.graph(graph):
         fn()
     cuda_ms(graph.replay, WARMUP_CALLS)
     return statistics.median(cuda_ms(graph.replay, calls))
@@ -617,7 +672,7 @@ def compare_train_steps(state, metrics, twin_state, twin_metrics) -> dict:
         flat, twin_flat = torch.cat([m.flatten() for m in mus]), torch.cat([m.flatten() for m in twin_mus])
         row = {"moments_rel_l2": float((flat - twin_flat).norm() / twin_flat.norm()),
                "params": 0.0, "sign_rule": 0, "elements": flat.numel()}
-        lr = opt.adamw.param_groups[0]["lr"]
+        lr = float(opt.adamw.param_groups[0]["lr"])  # a 0-d tensor where it decays
         for p, q, mu, twin_mu in zip(opt.params, twin_opt.params, mus, twin_mus):
             q = q.detach().cpu()
             slack = 2 * lr * (torch.sign(mu) != torch.sign(twin_mu)).float()
@@ -650,13 +705,20 @@ def describe_train_comparison(worst: dict) -> str:
                   for part, row in worst.items() if part not in ("metrics", "state"))
 
 
-def traced(fn, calls: int) -> tuple:
+def traced(fn, calls: int, names: str = "denoise_sweep", want=None) -> tuple:
     """``calls`` runs of ``fn`` in one torch.profiler session: (host ms per
     call, the session's events). A trace that holds no device event at all
-    saw nothing of what ran (one session in 56 on an H100): the
-    session is run again, ``PROFILE_TRIES`` times at most in all."""
+    saw nothing of what ran (one session in 56 on an H100), and the trace of
+    a graph replay can lose a few of its kernels (one replayed env step of
+    the same graph read 170, 171 and 172 kernels in three runs; one
+    64-step collect read 63 sweep kernels): such a session, or, where
+    ``want`` is given, one whose trace holds another number of kernels named
+    ``names``, is run again, ``PROFILE_TRIES`` times at most in all. The
+    last session with device events is returned if no session held
+    ``want``, for the caller's check to refuse."""
     from torch.profiler import ProfilerActivity, profile
 
+    last = None
     for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -666,20 +728,30 @@ def traced(fn, calls: int) -> tuple:
             torch.cuda.synchronize()
             host = (time.perf_counter() - t0) * 1e3 / calls
         events = prof.events()
-        if any(e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("train_step/") for e in events):
-            return host, events
-        log("[5 profiled] the profiler's trace held no device event; the session again")
-    raise RuntimeError(f"no device event in the profiler's trace in {PROFILE_TRIES} sessions")
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("train_step/")]
+        if not device:
+            log("[5 profiled] the profiler's trace held no device event; the session again")
+            continue
+        last = host, events
+        seen = sum(names in e.name for e in device)
+        if want is None or seen == want:
+            return last
+        log(f"[5 profiled] {seen} kernels named {names} in the trace, expected {want}, of "
+            f"{len(device)} device events; the session again")
+    if last is None:
+        raise RuntimeError(f"no device event in the profiler's trace in {PROFILE_TRIES} sessions")
+    return last
 
 
-def profile_ms(fn, calls: int, names: str) -> dict:
-    """``calls`` runs of ``fn`` under torch.profiler (``traced``): host ms
+def profile_ms(fn, calls: int, names: str, want=None) -> dict:
+    """``calls`` runs of ``fn`` under torch.profiler (``traced``, which
+    runs the session again where ``want`` kernels are not seen): host ms
     per call, the device ms per call summed over kernels, the share of it
     spent in kernels whose name holds ``names`` and how many such kernels
     the trace holds, the kernel count, and the host ms per call of each
     ``train_step/<phase>`` range."""
-    host, events = traced(fn, calls)
+    host, events = traced(fn, calls, names, want)
     # the phases' ranges appear twice: on the host, and as annotations on the device's timeline
     ranges = [e for e in events if e.name.startswith("train_step/")]
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
@@ -781,19 +853,25 @@ def largest_difference(agent, state, metrics, twin, twin_state, twin_metrics) ->
     return max(diffs)
 
 
-def profile_epoch(agent, state, ring_state, updates: int) -> tuple:
-    """One ``train_epoch`` of ``updates`` replays under torch.profiler: the
-    sweep kernels in the device trace, the graph launches, the host's
-    launches outside the graphs per update (kernels, copies and fills), the
-    device ms per update summed over its kernels, the sweep's, and the host
-    ms per update (``traced``). Returns (state, that dict)."""
-    metrics = {}
+def profile_epoch(agent, state, ring_state, updates: int, sweeps: int) -> tuple:
+    """One ``train_epoch`` of ``updates`` replays under torch.profiler
+    (``traced``, again where the trace holds other than ``sweeps`` sweep
+    kernels): the sweep kernels in the device trace, the graph launches,
+    the kernels' launches counted in that session, the host's launches
+    outside the graphs per update (kernels, copies and fills), the device ms
+    per update summed over its kernels, the sweep's, and the host ms per
+    update. Returns (state, that dict)."""
+    from active_inference_diffusion_torch.ops.denoise import LAUNCHES
+
+    metrics, launched = {}, 0
 
     def epoch():
-        nonlocal state, metrics
+        nonlocal state, metrics, launched
+        before = sum(LAUNCHES.values())
         state, metrics = agent.train_epoch(state, ring_state, updates)
+        launched = sum(LAUNCHES.values()) - before
 
-    host, events = traced(epoch, 1)
+    host, events = traced(epoch, 1, "denoise_sweep", sweeps)
     host /= updates
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     runtime = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU]
@@ -802,6 +880,7 @@ def profile_epoch(agent, state, ring_state, updates: int) -> tuple:
                   and "Graph" not in n)
     return state, dict(
         sweep_kernels=len(sweeps), graph_launches=sum(1 for n in runtime if "GraphLaunch" in n),
+        launches=launched,
         launches_outside=outside / updates, device_ops=len(device) / updates,
         device_ms=sum(e.time_range.elapsed_us() for e in device) / 1e3 / updates,
         sweep_ms=sum(e.time_range.elapsed_us() for e in sweeps) / 1e3 / updates,
@@ -987,14 +1066,25 @@ def sweep_counts() -> tuple:
 
 
 def dreamer_epoch_check(dev, label, preset, ring_state, one_epoch=False, **knobs):
-    """Two trainers of the preset with the same weights, steps 0-9 from the
-    same state and draws: the eager loop of ``train_step_from_draws``, and
-    ``train_epoch`` graph replays (ten calls of one update, or with
+    """``epoch_check`` of two trainers of the preset (``dreamer_agent``);
+    no sweep may run. Returns (eager agent, its state, graph agent, its
+    state, the kinds of update captured)."""
+    return epoch_check("[4 dreamer]", label, lambda: dreamer_agent(preset, dev, **knobs),
+                       ring_state, one_epoch)[:5]
+
+
+def epoch_check(tag, label, make_agent, ring_state, one_epoch=False, plain_per_update=0):
+    """Two trainers from ``make_agent`` (the same weights), steps 0-9 from
+    the same state and draws: the eager loop of ``train_step_from_draws``,
+    and ``train_epoch`` graph replays (ten calls of one update, or with
     ``one_epoch`` one call of ten). Held by the train check on the last
     update (or, in one epoch, on the updates' mean metrics) and the final
-    state; no sweep may launch. Returns (eager agent, its state, graph
-    agent, its state, the kinds of update captured)."""
-    pair = [dreamer_agent(preset, dev, **knobs) for _ in range(2)]
+    state; no sweep kernel may launch, and each update runs
+    ``plain_per_update`` plain sweeps (the grounded beliefs' differentiated
+    sweep): the eager loop's, each replay's and each capture's warm-up.
+    Returns (eager agent, its state, graph agent, its state, the kinds of
+    update captured, the plain sweeps counted)."""
+    pair = [make_agent() for _ in range(2)]
     eager, graph = pair
     states = [agent.new_train_state(405) for agent in pair]
     counts = sweep_counts()
@@ -1007,12 +1097,15 @@ def dreamer_epoch_check(dev, label, preset, ring_state, one_epoch=False, **knobs
     else:
         graph_state, graph_metrics = graph_updates(graph, states[1], ring_state, EPOCH_COMPARED)
         mines = [s for s, m in enumerate(eager_metrics) if float(m["epistemic_mi"]) != 0.0]
-        if mines != [0, 5]:
+        if mines != [s for s in range(EPOCH_COMPARED) if s % eager.config.epistemic_update_every == 0]:
             raise RuntimeError(f"{label}: MINE at steps {mines}")
     torch.cuda.synchronize()
     kinds = sorted(graph._epoch_graphs.captured)
-    if sweep_counts() != counts or graph_state.step != EPOCH_COMPARED:
-        raise RuntimeError(f"{label}: a sweep ran, or the graph epoch ended at step "
+    launched, plain = (now - before for now, before in zip(sweep_counts(), counts))
+    want_plain = plain_per_update * (2 * EPOCH_COMPARED + graph._epoch_graphs.captures)
+    if launched or plain != want_plain or graph_state.step != EPOCH_COMPARED:
+        raise RuntimeError(f"{label}: {launched} sweep launches and {plain} plain sweeps (expected "
+                           f"0 and {want_plain}), or the graph epoch ended at step "
                            f"{graph_state.step}")
     worst = compare_train_steps(graph_state, graph_metrics[-1], eager_state, eager_metrics[-1])
     worst["metrics"] = max(
@@ -1020,15 +1113,16 @@ def dreamer_epoch_check(dev, label, preset, ring_state, one_epoch=False, **knobs
         for g, w in zip(graph_metrics, eager_metrics) for k in w)
     largest, where = largest_difference(graph, graph_state, graph_metrics, eager, eager_state,
                                         eager_metrics)
-    log(f"[4 dreamer] {label}: steps 0-{EPOCH_COMPARED - 1} as "
+    log(f"{tag} {label}: steps 0-{EPOCH_COMPARED - 1} as "
         f"{'one train_epoch call' if one_epoch else f'{EPOCH_COMPARED} train_epoch calls'} of "
-        f"graph replays vs the eager loop; kinds captured (MINE, anchor open) {kinds}; largest "
-        f"difference {largest:.3e}, in {where} (over the metrics, parameters, moments and "
-        "state fields); " + describe_train_comparison(worst))
+        f"graph replays vs the eager loop; kinds captured (MINE, anchor open) {kinds}; plain "
+        f"sweeps {plain}, sweep launches {launched}; largest difference {largest:.3e}, in "
+        f"{where} (over the metrics, parameters, moments and state fields); "
+        + describe_train_comparison(worst))
     failed = train_step_fails(worst)
     if failed:
         raise RuntimeError(f"{label}: the graph replays disagree with the eager loop: {failed}")
-    return eager, eager_state, graph, graph_state, kinds
+    return eager, eager_state, graph, graph_state, kinds, plain
 
 
 def dreamer_acting_errors(agent, state) -> dict:
@@ -1295,11 +1389,12 @@ def transitions_err(got, want, steps: int, rtol: float, atol: float) -> float:
     return worst
 
 
-def replay_profile(collector) -> dict:
+def replay_profile(collector, want: int) -> dict:
     """One more replay of a collect's captured env step (its step index set
-    back to 0, so it writes the first step's slot) under torch.profiler."""
+    back to 0, so it writes the first step's slot, or the next ones where
+    ``traced`` runs the session again) under torch.profiler."""
     collector.t.zero_()
-    return profile_ms(collector.step_graph.graph.replay, 1, "denoise_sweep")
+    return profile_ms(collector.step_graph.graph.replay, 1, "denoise_sweep", want)
 
 
 def fused_collect_check(dev, label: str, run, sweep: bool, tag: str = "[4 fused]",
@@ -1376,7 +1471,8 @@ def fused_collect_check(dev, label: str, run, sweep: bool, tag: str = "[4 fused]
     if graph_err > 1.0 or twin_err > 1.0:
         raise RuntimeError(f"{label}: the graph collect disagrees with the eager loop or the CPU")
     return dict(launches=counts[0][kernel], steps_per_s=n * steps / seconds[1],
-                first_s=seconds[0], capture_s=graph.capture_seconds, run=run)
+                first_s=seconds[0], capture_s=graph.capture_seconds, run=run,
+                first_states=first_states, first_actions=first.actions)
 
 
 def fused_preset_check(tag: str, preset: str, c: dict) -> dict:
@@ -1521,6 +1617,9 @@ def rigid3d_phase(dev, launches: dict) -> dict:
         out[name] = fused_collect_check(dev, name, run, sweep=True, tag="[4 rigid3d]",
                                         twin_tol=RIGID3D_TWIN_TOL[name])
         launches[kernel] += out[name]["launches"]
+        if name != "Ant3D-v0":
+            out[name]["f64_twin"] = f64_env_twin(dev, name, out[name]["first_states"],
+                                                 out[name]["first_actions"][:C5_STEPS])
         width = 27 if name == "Ant3D-v0" else 376
         if run.env.observation_dim != width:
             raise RuntimeError(f"{name}: observation width {run.env.observation_dim}, "
@@ -1529,6 +1628,336 @@ def rigid3d_phase(dev, launches: dict) -> dict:
         out[preset] = fused_preset_check("[4 rigid3d]", preset, c)
     log(f"[4 rigid3d] phase in {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# -- [4 ground], [4 resume]: grounded-belief training and checkpoints ---------
+
+
+def tuned_agent(device, **knobs):
+    """examples/configs/halfcheetah_state_tuned.yaml loaded from its file by
+    the port's ``load_yaml_config``, ``knobs`` set on its config, at
+    HalfCheetah-v4's dimensions on ``device``: the Flax initialisers from
+    seed 600, then the score network ``randomize``d (seed 601)."""
+    from active_inference_diffusion_torch import DiffusionStateAgent, load_yaml_config
+
+    cfg, training, _ = load_yaml_config(str(Path(__file__).resolve().parent / "examples"
+                                            / "configs" / f"{TUNED}.yaml"))
+    for name, value in knobs.items():
+        setattr(cfg, name, value)
+    agent = DiffusionStateAgent(FLAGSHIP_OBS, FLAGSHIP_ACT, cfg, training, device=device)
+    agent.core.init_params(torch.Generator(device=device).manual_seed(600))
+    randomize(agent.core.score_network, seed=601)
+    return agent
+
+
+def decay_check(dev, ring_state) -> None:
+    """The tuned preset with ``policy_lr_decay_steps`` set: two trainers
+    from one state, the eager loop and one-update ``train_epoch`` graph
+    replays, step by step over steps 0-5, across the decay's end: the
+    policy's rate of each (the device tensor the update wrote) against the
+    host schedule and against each other, the policy's parameters of the two,
+    then the train check on the last step."""
+    knobs = dict(policy_lr_decay_steps=TUNED_DECAY_STEPS, policy_lr_final_scale=0.1)
+    eager, graph = tuned_agent(dev, **knobs), tuned_agent(dev, **knobs)
+    eager_state, graph_state = eager.new_train_state(620), graph.new_train_state(620)
+    init = eager.config.learning_rate * eager.config.policy_lr_scale
+
+    def schedule(count: int) -> float:  # optax's cosine_decay_schedule, in float64
+        frac = min(count, TUNED_DECAY_STEPS) / TUNED_DECAY_STEPS
+        return init * (0.9 * 0.5 * (1.0 + math.cos(math.pi * frac)) + 0.1)
+
+    rates, worst_rate, worst_param = [], 0.0, 0.0
+    for step in range(TUNED_DECAY_COMPARED):
+        eager_state, eager_metrics = eager_updates(eager, eager_state, ring_state, 1)
+        graph_state, graph_metrics = graph_updates(graph, graph_state, ring_state, 1)
+        got = [float(s.optimizers["policy"].adamw.param_groups[0]["lr"])
+               for s in (eager_state, graph_state)]
+        want = schedule(step)
+        rates.append(got[1])
+        worst_rate = max(worst_rate, abs(got[1] - want) / want)
+        if got[0] != got[1]:
+            raise RuntimeError(f"policy_lr_decay_steps: step {step} rate {got[1]} replayed, "
+                               f"{got[0]} eager")
+        worst_param = max(worst_param, max(
+            float((p.detach() - q.detach()).abs().max()) for p, q in zip(
+                eager.core.policy_network.parameters(), graph.core.policy_network.parameters())))
+    torch.cuda.synchronize()
+    worst = compare_train_steps(graph_state, graph_metrics[-1], eager_state, eager_metrics[-1])
+    log(f"[4 ground] {TUNED}.yaml with policy_lr_decay_steps={TUNED_DECAY_STEPS} (this knob "
+        f"changed for this check only): steps 0-{TUNED_DECAY_COMPARED - 1}, graph replays vs the "
+        f"eager loop step by step; policy rate per step {[f'{r:.6e}' for r in rates]}, the same "
+        f"in both, largest |rate - schedule| / schedule {worst_rate:.3e} (float32 against the "
+        f"host's float64; limit 1e-6); largest policy parameter difference {worst_param:.3e}; "
+        + describe_train_comparison(worst))
+    failed = train_step_fails(worst)
+    if worst_rate > 1e-6 or rates[-1] != rates[-2] or failed:
+        raise RuntimeError(f"policy_lr_decay_steps: the rate does not follow the schedule, or "
+                           f"the graph disagrees with the eager loop: {failed}")
+
+
+def f64_env_twin(dev, name: str, start, actions) -> float:
+    """The env steps of ``name`` in float64 on the card against the CPU, from
+    the physics of ``start`` (a collect's env states) with ``actions`` (T, N,
+    act) of the collect, no autoreset: the largest err/tol over the
+    observations, rewards and physics of every step at ``RIGID3D_F64_TOL``.
+    Raises above 1."""
+    from active_inference_diffusion_torch.envs.device_envs import EnvState, make_device_env
+
+    envs = [make_device_env(name, device=d, dtype=torch.float64) for d in (dev, "cpu")]
+    states = [EnvState(*(x.to(env.device) for x in start.tensors())) for env in envs]
+    states = [st.replace(**{f: getattr(st, f).double() for f in ("physics", "obs", "reward")})
+              for st in states]
+    tol, worst = RIGID3D_F64_TOL, 0.0
+    for action in actions:
+        states = [env.step(st, action.to(device=env.device, dtype=torch.float64))
+                  for env, st in zip(envs, states)]
+        for field in ("obs", "reward", "physics"):
+            got, want = (getattr(st, field).cpu() for st in states)
+            worst = max(worst, float(((got - want).abs() / (tol[1] + tol[0] * want.abs())).max()))
+    log(f"[4 rigid3d] {name}: the first collect's {start.physics.shape[0]} envs x "
+        f"{actions.shape[0]} steps from its start states with its actions in float64, card vs "
+        f"CPU: err/tol {worst:.3e} (rtol {tol[0]:g}, atol {tol[1]:g})")
+    if worst > 1.0:
+        raise RuntimeError(f"{name}: the float64 env steps of card and CPU disagree")
+    return worst
+
+
+def c5_check(dev) -> dict:
+    """C5: Humanoid3D-v0 and HumanoidStandup3D-v0 env steps on the card
+    against the CPU from the same states and actions (a seeded reset, then
+    ``C5_STEPS`` steps of seeded actions in [-1, 1]), in float64 and in
+    float32: the largest err/tol over the observations, rewards and physics
+    of every step, at ``C5_TOL`` (float64) and at 4h's ``FUSED_TWIN_TOL``
+    (float32). The float64 check must hold; the float32 one is reported."""
+    from active_inference_diffusion_torch.envs.device_envs import ResetDraws, make_device_env
+
+    out = {}
+    for name in ("Humanoid3D-v0", "HumanoidStandup3D-v0"):
+        for dtype, tol in ((torch.float64, C5_TOL), (torch.float32, FUSED_TWIN_TOL)):
+            envs = [make_device_env(name, device=d, dtype=dtype) for d in (dev, "cpu")]
+            gen = torch.Generator(device="cpu").manual_seed(630)
+            draws = envs[1].draw_reset(C5_ENVS, gen)
+            actions = 2.0 * torch.rand((C5_STEPS, C5_ENVS, envs[0].action_dim), generator=gen,
+                                       dtype=dtype) - 1.0
+            states = [envs[0].reset(ResetDraws(*(None if x is None else x.to(dev)
+                                                 for x in draws))), envs[1].reset(draws)]
+            worst = 0.0
+            for step in range(C5_STEPS):
+                states = [env.step(st, env.scale_action(actions[step].to(env.device)))
+                          for env, st in zip(envs, states)]
+                for field in ("obs", "reward", "physics"):
+                    got, want = (getattr(st, field).cpu().double() for st in states)
+                    worst = max(worst, float(((got - want).abs()
+                                              / (tol[1] + tol[0] * want.abs())).max()))
+            out[(name, str(dtype).split(".")[-1])] = (worst, tol)
+    torch.cuda.synchronize()
+    log("[4 ground] C5: Humanoid3D-v0 and HumanoidStandup3D-v0, " f"{C5_ENVS} envs x {C5_STEPS} "
+        "env steps from a seeded reset with seeded actions, the card against the CPU on the "
+        "same states and actions, err/tol over observation, reward and physics: "
+        + "; ".join(f"{n} {d} {w:.3e} (rtol {t[0]:g}, atol {t[1]:g})"
+                    for (n, d), (w, t) in out.items()))
+    failed = [k for k, (w, _) in out.items() if k[1] == "float64" and w > 1.0]
+    if failed:
+        raise RuntimeError(f"C5: the float64 env steps of card and CPU disagree: {failed}")
+    return out
+
+
+def ground_phase(dev, launches: dict) -> dict:
+    """Phase ``[4 ground]`` (see ``main``). Adds the sweep launches of its
+    fused collects to ``launches``; returns what phase 5 reports."""
+    from active_inference_diffusion_torch import train_fused
+    from active_inference_diffusion_torch.ops.denoise import KERNELS, LAUNCHES, PLAIN_RUNS
+
+    t0 = time.perf_counter()
+    kernel = "denoise_sweep_v1_f32"
+    out = {}
+    # a. one update with explicit draws, card against the CPU twin
+    agent = tuned_agent(dev)
+    twin = twin_of(agent)
+    cfg = agent.config
+    batch = train_batch(cfg.batch_size, 610, dev)
+    state, twin_state = agent.new_train_state(602), twin.new_train_state(602)
+    draws = agent.draw_train(state, cfg.batch_size)
+    counts = sweep_counts()
+    state, metrics = agent.train_step_from_draws(state, batch, draws)
+    torch.cuda.synchronize()
+    launched, plain = (now - before for now, before in zip(sweep_counts(), counts))
+    twin_state, twin_metrics = twin.train_step_from_draws(
+        twin_state, {k: v.cpu() for k, v in batch.items()}, draws.to("cpu"))
+    worst = compare_train_steps(state, metrics, twin_state, twin_metrics)
+    log(f"[4 ground] {TUNED}.yaml B={cfg.batch_size} D={cfg.latent_dim} H={cfg.hidden_dim} "
+        f"L={cfg.score_num_layers} K={cfg.diffusion.num_diffusion_steps} ground_beliefs: one "
+        f"update (a MINE step) with explicit draws (the sweep's start and its {draws.sweep_noise.shape[0]} "
+        f"steps' noise, {tuple(draws.sweep_noise.shape)}) vs CPU twin; the differentiated "
+        f"sweep of {2 * cfg.batch_size} rows ran as {plain} plain sweep (PLAIN_RUNS) and "
+        f"{launched} kernel launches: " + describe_train_comparison(worst) + "; metrics "
+        + json.dumps({k: round(float(v), 6) for k, v in metrics.items()}))
+    failed = train_step_fails(worst)
+    if failed or (launched, plain) != (0, 1):
+        raise RuntimeError(f"{TUNED}: the card's update disagrees with the CPU twin ({failed}), "
+                           "or its sweep was not one plain run")
+
+    # b. graph replays against the eager loop over steps 0-9, then the decaying rate
+    ring, described = fill_ring(dev, 640)
+    log(f"[4 ground] ring: {described}")
+    out["pair"] = epoch_check("[4 ground]", f"{TUNED}.yaml", lambda: tuned_agent(dev),
+                              ring.state, plain_per_update=1)[:4]
+    out["ring"] = ring
+    decay_check(dev, ring.state)
+
+    # c. acting: one act call of the trained agent, the v1-f32 kernel
+    counts = (dict(LAUNCHES), dict(PLAIN_RUNS))
+    obs = np.random.default_rng(641).standard_normal((cfg.batch_size, FLAGSHIP_OBS))
+    actions = agent.act(obs.astype(np.float32), torch.Generator(device=dev).manual_seed(642),
+                        state=state)
+    torch.cuda.synchronize()
+    acted = (LAUNCHES[kernel] - counts[0][kernel], sum(PLAIN_RUNS.values()) - sum(counts[1].values()))
+    log(f"[4 ground] act with the trained state, B={cfg.batch_size}, collect sweep of "
+        f"{agent.training_config.collect_diffusion_steps} steps: {acted[0]} {kernel} launch, "
+        f"{acted[1]} plain sweeps; actions finite {bool(np.isfinite(actions).all())}")
+    if acted != (1, 0) or not np.isfinite(actions).all():
+        raise RuntimeError(f"{TUNED}: act did not launch the kernel once")
+    launches[kernel] += 1
+
+    # d. train_fused on the planar HalfCheetah: the collect's sweep at B=64, K=15
+    c = TUNED_FUSED
+    path = Path(__file__).resolve().parent / "examples" / "configs" / f"{TUNED}.yaml"
+    run = fused_run("--config", str(path), "--env", "HalfCheetahPlanar-v0", "--num-envs",
+                    str(c["envs"]), "--steps-per-iter", str(c["steps"]), "--updates-per-iter",
+                    str(c["updates"]), "--iterations", str(c["iterations"]), "--train-epoch",
+                    seed=650)
+    label = f"{TUNED}.yaml on HalfCheetahPlanar-v0"
+    out["collect"] = fused_collect_check(dev, label, run, sweep=True, tag="[4 ground]")
+    launches[kernel] += out["collect"]["launches"]
+    for name in KERNELS:
+        LAUNCHES[name] = PLAIN_RUNS[name] = 0
+    logs = []
+    for it in range(c["iterations"]):
+        logs.append(train_fused.iterate(run, it))
+    torch.cuda.synchronize()
+    captures = run.agent._epoch_graphs.captures  # the run's first train_epoch came here
+    counts = (dict(LAUNCHES), dict(PLAIN_RUNS))
+    updates = c["iterations"] * c["updates"]
+    want = ({**{n: 0 for n in KERNELS}, kernel: c["iterations"] * c["steps"]},
+            {**{n: 0 for n in KERNELS}, kernel: updates + captures})
+    finite = all(np.isfinite(v) for lg in logs for v in lg.values())
+    log(f"[4 ground] {label}: {c['iterations']} train_fused iterations of {c['envs']} envs x "
+        f"{c['steps']} steps and {c['updates']} train_epoch updates (graph replays); launches "
+        f"{counts[0][kernel]} of {kernel} (B={c['envs']}, K={cfg.diffusion.num_diffusion_steps}, "
+        f"one an env step), plain sweeps {counts[1][kernel]} ({updates} replays and {captures} "
+        f"captures' warm-ups: the grounded update's differentiated sweep); "
+        + "; ".join(f"iteration {it}: {lg['fused/env_steps_per_sec']:.2f} env steps/s, collect "
+                    f"alone {lg['fused/collect_env_steps_per_sec']:.2f}, "
+                    f"{lg.get('fused/updates_per_sec', float('nan')):.3f} updates/s"
+                    for it, lg in enumerate(logs))
+        + "; last metrics " + json.dumps({k: round(v, 6) for k, v in logs[-1].items()}))
+    if counts != want or not finite:
+        raise RuntimeError(f"{label}: expected launches {want[0]} and plain runs {want[1]}, got "
+                           f"{counts}, or non-finite metrics")
+    launches[kernel] += counts[0][kernel]
+    out["logs"] = logs
+    out["c5"] = c5_check(dev)
+    log(f"[4 ground] phase in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def tree_difference(a, b) -> float:
+    """The largest absolute difference between two checkpoint trees (inf
+    where their structure or a non-tensor value differs)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return float("inf")
+        return max([tree_difference(a[k], b[k]) for k in a], default=0.0)
+    if isinstance(a, list):
+        if len(a) != len(b):
+            return float("inf")
+        return max([tree_difference(x, y) for x, y in zip(a, b)], default=0.0)
+    if isinstance(a, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return float("inf")
+        if a.dtype in (torch.bool, torch.uint8, torch.int64, torch.int32):
+            return 0.0 if torch.equal(a, b) else float("inf")
+        return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    return 0.0 if a == b else float("inf")
+
+
+def resume_phase(dev, launches: dict) -> dict:
+    """Phase ``[4 resume]`` (see ``main``): the checkpoint round trip of
+    ``train_fused`` on the card. Adds its sweep launches to ``launches``."""
+    import shutil
+
+    from active_inference_diffusion_torch import train_fused
+    from active_inference_diffusion_torch.ops.denoise import KERNELS, LAUNCHES, PLAIN_RUNS
+    from active_inference_diffusion_torch.utils.checkpoints import (
+        replay_state_dict,
+        train_state_dict,
+    )
+
+    t0 = time.perf_counter()
+    kernel = "denoise_sweep_v1_f32"
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    c = RESUME_LOOP
+    path = Path(__file__).resolve().parent / "examples" / "configs" / f"{TUNED}.yaml"
+    loop = ["--config", str(path), "--env", "Pendulum-v1", "--num-envs", str(c["envs"]),
+            "--steps-per-iter", str(c["steps"]), "--updates-per-iter", str(c["updates"]),
+            "--train-epoch", "--eval-every", "1", "--eval-envs", str(c["eval_envs"]),
+            "--log-dir", str(root / "logs")]
+    for name in KERNELS:
+        LAUNCHES[name] = PLAIN_RUNS[name] = 0
+    first = fused_run(*loop, "--iterations", "2", "--checkpoint-dir", str(root / "run"),
+                      "--save-replay", seed=700)
+    train_fused.train(first)
+    resumed = train_fused.build_run(train_fused.parse_args(
+        ["--device", "cuda", "--seed", "700", *loop, "--iterations", "1", "--resume",
+         str(root / "run" / "final")]))
+    torch.cuda.synchronize()
+    saved = (train_state_dict(first.agent, first.state), replay_state_dict(first.replay))
+    restored = (train_state_dict(resumed.agent, resumed.state), replay_state_dict(resumed.replay))
+    state_diff, ring_diff = (tree_difference(a, b) for a, b in zip(saved, restored))
+    resumed_at = resumed.total_steps
+    carried = (resumed_at, resumed.best_eval, resumed.restored_replay) == (
+        first.total_steps, first.best_eval, True)
+    # the first update after the resume, and the saved run's next update, on the same ring
+    for run in (first, resumed):
+        run.state, _ = run.agent.train_epoch(run.state, run.replay, 1)
+    torch.cuda.synchronize()
+    update_diff = tree_difference(train_state_dict(first.agent, first.state),
+                                  train_state_dict(resumed.agent, resumed.state))
+    train_fused.train(resumed)
+    # a resume without the ring refills it with no update
+    bare = root / "final_without_ring"
+    shutil.copytree(root / "run" / "final", bare)
+    (bare / "replay.pt").unlink()
+    refill = train_fused.build_run(train_fused.parse_args(
+        ["--device", "cuda", "--seed", "700", *loop, "--iterations", "0", "--resume", str(bare),
+         "--resume-refill-steps", str(RESUME_REFILL)]))
+    step, steps = refill.state.step, refill.total_steps
+    train_fused.train(refill)
+    torch.cuda.synchronize()
+    refilled = (refill.replay.host_size, refill.state.step, refill.total_steps)
+    counts = (LAUNCHES[kernel], sum(PLAIN_RUNS.values()))
+    sizes = {p.name: sum(f.stat().st_size for f in p.iterdir())
+             for p in (root / "run").iterdir() if p.is_dir()}
+    log(f"[4 resume] {TUNED}.yaml on Pendulum-v1, train_fused with --checkpoint-dir "
+        f"--eval-every 1 --save-replay for 2 iterations ({c['envs']} envs x {c['steps']} steps, "
+        f"{c['updates']} train_epoch updates, eval {c['eval_envs']} envs): checkpoints "
+        f"{json.dumps(sizes)} bytes, best eval {first.best_eval:.4f}; --resume final: every "
+        f"parameter, moment, count, rate, EMA, state field and the generator's state, largest "
+        f"difference {state_diff:.3e}; the ring and its mirrors {ring_diff:.3e}; total_steps "
+        f"{resumed_at}, best eval and the restored ring carried {carried}; the first "
+        f"update after the resume against the saved run's next update on the same ring and "
+        f"draws, largest difference {update_diff:.3e} (tolerance 0); then one iteration; a "
+        f"resume without the ring refilled {refilled[0]} transitions (target {RESUME_REFILL}) "
+        f"at state step {refilled[1]} (before {step}), total_steps {steps} -> {refilled[2]}; "
+        f"{counts[0]} {kernel} launches (collects and evals), {counts[1]} plain sweeps")
+    if (state_diff, ring_diff, update_diff) != (0.0, 0.0, 0.0) or not carried or refilled[0] < \
+            RESUME_REFILL or refilled[1] != step or refilled[2] != steps + refilled[0]:
+        raise RuntimeError("[4 resume]: the restored run differs from the saved one, or the "
+                           "refill took updates")
+    launches[kernel] += counts[0]
+    shutil.rmtree(root)
+    log(f"[4 resume] phase in {time.perf_counter() - t0:.1f} s")
 
 
 def profiled_phase(dev, card: str) -> None:
@@ -1551,9 +1980,7 @@ def profiled_phase(dev, card: str) -> None:
     sweep kernel an env step, the sweep's share of the device time, the
     busy share)."""
     from active_inference_diffusion_torch import train_fused
-    from active_inference_diffusion_torch.ops.denoise import KERNELS, LAUNCHES
 
-    kernel = "denoise_sweep_v1_f32"
     t0 = time.perf_counter()
     # -- every graph captured first
     ring, _ = fill_ring(dev)
@@ -1568,6 +1995,9 @@ def profiled_phase(dev, card: str) -> None:
     dreamer_eager_state = dreamer_eager.new_train_state(405)
     dreamer_state, _ = graph_updates(dreamer, dreamer.new_train_state(405), dreamer_ring.state,
                                      EPOCH_COMPARED)
+    grounded = tuned_agent(dev)
+    grounded_state, _ = graph_updates(grounded, grounded.new_train_state(405), ring.state,
+                                      EPOCH_COMPARED)
     envs, steps = FUSED_PENDULUM
     loop = ["--num-envs", str(envs), "--steps-per-iter", str(steps)]
     c = FUSED_CHEETAH
@@ -1586,6 +2016,10 @@ def profiled_phase(dev, card: str) -> None:
     }
     for name, (n, t) in RIGID3D_COLLECTS.items():
         runs[name] = fused_run("--env", name, "--num-envs", str(n), "--steps-per-iter", str(t))
+    tuned = Path(__file__).resolve().parent / "examples" / "configs" / f"{TUNED}.yaml"
+    runs[f"{TUNED}.yaml on HalfCheetahPlanar-v0"] = fused_run(
+        "--config", str(tuned), "--env", "HalfCheetahPlanar-v0", "--num-envs",
+        str(TUNED_FUSED["envs"]), "--steps-per-iter", str(TUNED_FUSED["steps"]), seed=650)
 
     def collect(run):
         run.env_states, run.policy_state, _ = train_fused.collect_and_store(
@@ -1597,25 +2031,25 @@ def profiled_phase(dev, card: str) -> None:
     for _ in range(TRAIN_WARMUP):
         trainer.train_step(trainer.new_train_state(304), batch)
     torch.cuda.synchronize()
-    epoch_graphs = [flagship._epoch_graphs, dreamer._epoch_graphs]
+    epoch_graphs = [flagship._epoch_graphs, dreamer._epoch_graphs, grounded._epoch_graphs]
     captures = [g.captures for g in epoch_graphs]
-    log(f"[5 profiled] set-up: the flagship's and the HalfCheetah learning preset's epoch "
-        f"graphs ({captures[0]} and {captures[1]} captured), the eight collects' env steps "
+    log(f"[5 profiled] set-up: the flagship's, the HalfCheetah learning preset's and the tuned "
+        f"preset's epoch graphs ({captures[0]}, {captures[1]} and {captures[2]} captured), the "
+        f"{len(runs)} collects' env steps "
         f"captured, in {time.perf_counter() - t0:.1f} s")
 
     # -- the profiled replays
-    for name in KERNELS:
-        LAUNCHES[name] = 0
-    flagship_state, prof = profile_epoch(flagship, flagship_state, ring.state, EPOCH_PROFILED)
+    flagship_state, prof = profile_epoch(flagship, flagship_state, ring.state, EPOCH_PROFILED,
+                                         EPOCH_PROFILED)
     log(f"[5 profiled] train_epoch flagship v1-f32 B={FLAGSHIP['batch']}, {EPOCH_PROFILED} "
         f"replays: {prof['sweep_kernels']} sweep kernels and {prof['graph_launches']} graph "
-        f"launches in the trace, launches counted {LAUNCHES[kernel]}; host {prof['host_ms']:.4f} "
+        f"launches in the trace, launches counted {prof['launches']}; host {prof['host_ms']:.4f} "
         f"ms, device {prof['device_ms']:.4f} ms an update, device busy "
         f"{prof['device_ms'] / prof['host_ms']:.3%}, {prof['launches_outside']:.1f} launches an "
         f"update outside the graph (kernels, copies, fills), sweep kernel {prof['sweep_ms']:.4f} "
         f"ms an update | {card}")
     if (prof["sweep_kernels"] != EPOCH_PROFILED or prof["graph_launches"] != EPOCH_PROFILED
-            or LAUNCHES[kernel] != EPOCH_PROFILED or not prof["metrics_finite"]):
+            or prof["launches"] != EPOCH_PROFILED or not prof["metrics_finite"]):
         raise RuntimeError("epoch: the profiler does not see one sweep kernel and one graph "
                            "launch per replayed update")
 
@@ -1628,7 +2062,7 @@ def profiled_phase(dev, card: str) -> None:
             timed_state, _ = trainer.train_step(timed_state, batch)
 
         train_call()
-        prof = profile_ms(train_call, 5, "denoise_sweep")
+        prof = profile_ms(train_call, 5, "denoise_sweep", 5)
         log(f"[5 profiled] train_step flagship {variant}-f32 B={FLAGSHIP['batch']}, 5 steps: host "
             f"{prof['host_ms']:.4f} ms, device {prof['device_ms']:.4f} ms a step in "
             f"{prof['kernels_per_call']:.0f} kernels, sweep kernel {prof['named_ms']:.4f} ms "
@@ -1642,7 +2076,7 @@ def profiled_phase(dev, card: str) -> None:
                                "the trace of 5 steps")
 
     dreamer_state, prof = profile_epoch(dreamer, dreamer_state, dreamer_ring.state,
-                                        EPOCH_PROFILED)
+                                        EPOCH_PROFILED, 0)
 
     def eager_call():
         nonlocal dreamer_eager_state
@@ -1650,7 +2084,7 @@ def profiled_phase(dev, card: str) -> None:
                                                dreamer_ring.state, 1)
 
     eager_call()
-    eager_prof = profile_ms(eager_call, 3, "denoise_sweep")
+    eager_prof = profile_ms(eager_call, 3, "denoise_sweep", 0)
     log(f"[5 profiled] train_epoch halfcheetah_state_dreamer B={dreamer.config.batch_size}, "
         f"{EPOCH_PROFILED} replays: host {prof['host_ms']:.4f} ms, device "
         f"{prof['device_ms']:.4f} ms an update in {prof['device_ops']:.0f} kernels and copies, "
@@ -1665,21 +2099,33 @@ def profiled_phase(dev, card: str) -> None:
     if prof["sweep_kernels"] or eager_prof["named_kernels"] or not prof["metrics_finite"]:
         raise RuntimeError("dreamer epoch: a sweep in the trace, or non-finite metrics")
 
+    grounded_state, prof = profile_epoch(grounded, grounded_state, ring.state, GROUND_PROFILED,
+                                                 0)
+    log(f"[5 profiled] train_epoch {TUNED} B={grounded.config.batch_size} (ground_beliefs), "
+        f"{GROUND_PROFILED} replays: host {prof['host_ms']:.4f} ms, device "
+        f"{prof['device_ms']:.4f} ms an update in {prof['device_ops']:.0f} kernels and copies, "
+        f"device busy {prof['device_ms'] / prof['host_ms']:.3%}, "
+        f"{prof['launches_outside']:.1f} launches an update outside the graph, "
+        f"{prof['sweep_kernels']} sweep kernels (the differentiated sweep is plain) | {card}")
+    if prof["sweep_kernels"] or not prof["metrics_finite"]:
+        raise RuntimeError("grounded epoch: a sweep kernel in the trace, or non-finite metrics")
+
     for label, run in runs.items():
-        step = replay_profile(run.collector)
         want = 0 if label == "HalfCheetahPlanar-v0" else 1
+        step = replay_profile(run.collector, want)
         log(f"[5 profiled] fused collect {label} ({run.args.num_envs} envs): one replayed env "
             f"step, {step['kernels_per_call']:.0f} kernels and copies (the graph's nodes), "
-            f"{step['named_kernels']} sweep kernel, device {step['device_ms']:.4f} ms, host "
-            f"{step['host_ms']:.4f} ms, device busy {step['device_ms'] / step['host_ms']:.3%} "
-            f"| {card}")
+            f"{step['named_kernels']} sweep kernel {step['named_ms']:.4f} ms "
+            f"({step['named_ms'] / step['device_ms']:.3%} of the step's device time), device "
+            f"{step['device_ms']:.4f} ms, host {step['host_ms']:.4f} ms, device busy "
+            f"{step['device_ms'] / step['host_ms']:.3%} | {card}")
         if step["named_kernels"] != want:
             raise RuntimeError(f"{label}: {step['named_kernels']} sweep kernels in the trace of "
                                f"one replayed env step, expected {want}")
     for label in pendulum + ("Ant3D-v0",):
         run = runs[label]
         envs, steps = run.args.num_envs, run.args.steps_per_iter
-        prof = profile_ms(lambda: collect(run), 1, "denoise_sweep")
+        prof = profile_ms(lambda: collect(run), 1, "denoise_sweep", steps)
         log(f"[5 profiled] fused collect {label} (one collect of {steps} steps x {envs} envs, "
             f"graph replays): host {prof['host_ms']:.4f} ms, device {prof['device_ms']:.4f} ms "
             f"in {prof['kernels_per_call'] / steps:.0f} kernels a step, {prof['named_kernels']} "
@@ -2042,6 +2488,9 @@ def main() -> int:
         ("denoise_sweep_v1_f32", "fused_hopper", dict(collect_shape, batch=512)),
         ("denoise_sweep_v1_f32", "fused_eval", dict(collect_shape, batch=64)),
         ("denoise_sweep_v1_f32", "fused_ant3d", dict(collect_shape, batch=256)),
+        # the tuned preset's collect on HalfCheetahPlanar-v0 ([4 ground])
+        ("denoise_sweep_v1_f32", "tuned_collect", dict(flag, batch=64, schedule_len=15,
+                                                        steps=15)),
     ]
     summary = {}
     for kernel, label, shape in timed:
@@ -2145,6 +2594,26 @@ def main() -> int:
     # [4 rigid3d], with its times: the 3D engine (envs/rigid3d.py) in the fused loop.
     rigid = rigid3d_phase(dev, launches)
     fused_times_phase(rigid, RIGID3D_COLLECTS, RIGID3D_PRESETS, card)
+
+    # [4 ground] and [4 resume]: grounded-belief training (the tuned preset), C5, and
+    # train_fused's checkpoint round trip.
+    ground = ground_phase(dev, launches)
+    eager, eager_state, graph, graph_state = ground["pair"]
+    _, _, times = epoch_times(eager, eager_state, graph, graph_state, ground["ring"].state,
+                              updates=GROUND_TIMED)
+    log(f"[5 times] train_epoch {TUNED} B={graph.config.batch_size} (ground_beliefs: one plain "
+        f"differentiated sweep an update), {GROUND_TIMED} updates an arm in blocks of "
+        f"{EPOCH_BLOCK}, in turns (eager, graph, graph, eager): eager loop median "
+        f"{times['eager']['median_ms']:.4f} ms an update, {times['eager']['updates_per_s']:.3f} "
+        f"updates/s; graph replays median {times['graph']['median_ms']:.4f} ms an update, "
+        f"{times['graph']['updates_per_s']:.3f} updates/s "
+        f"({times['graph']['updates_per_s'] / times['eager']['updates_per_s']:.2f}x) | {card}")
+    r = ground["collect"]
+    log(f"[5 times] fused collect {TUNED}.yaml on HalfCheetahPlanar-v0 "
+        f"({r['run'].args.num_envs} envs, the sweep at K=15): {r['steps_per_s']:.1f} env steps/s "
+        f"(a collect of graph replays into the ring); first collect with the capture "
+        f"{r['first_s']:.3f} s, capture {r['capture_s']:.3f} s | {card}")
+    resume_phase(dev, launches)
 
     # The profiled replays, in a process of their own (see profiled_phase).
     t0 = time.perf_counter()

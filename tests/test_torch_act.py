@@ -243,13 +243,11 @@ def test_agent_act_on_cpu():
 @pytest.mark.parametrize(
     "overrides,call",
     [
-        (dict(ground_beliefs=True), "train_step"),
         (dict(plan_candidates=4), "act"),
         (dict(semantics=SemanticsConfig(mode="faithful")), "compute_efe_info"),
-        ({}, "return_trajectory"),
         (dict(pixel_observation=True), "construct"),
     ],
-    ids=["ground_beliefs", "act_planned", "efe_info", "trajectory", "pixels"],
+    ids=["act_planned", "efe_info", "pixels"],
 )
 def test_unported_branches_raise(overrides, call):
     cfg = tiny_config(**overrides)
@@ -262,13 +260,6 @@ def test_unported_branches_raise(overrides, call):
             agent.act(obs, g)
         elif call == "compute_efe_info":
             agent.core.act(g, t(obs), compute_efe_info=True)
-        elif call == "return_trajectory":
-            agent.core.generate_beliefs(g, t(obs), return_trajectory=True)
-        elif call == "train_step":
-            batch = {k: t(normal(26 + i, *shape)) for i, (k, shape) in enumerate(
-                (("observations", (2, OBS_DIM)), ("next_observations", (2, OBS_DIM)),
-                 ("actions", (2, ACT_DIM)), ("rewards", (2,)), ("dones", (2,))))}
-            agent.train_step(agent.new_train_state(0), batch)
 
 
 def test_default_device_is_cuda():

@@ -61,6 +61,7 @@ from torch_parity import (
     chained_epochs,
     chained_steps,
     check_update,
+    digest,
     efe_draws,
     fast_jit,
     jax_agent,
@@ -69,6 +70,7 @@ from torch_parity import (
     numpy_tree,
     perturbed,
     port_config,
+    shared,
     t,
     tiny_config,
     to_torch,
@@ -191,9 +193,9 @@ def jax_modules(params):
             objective=jax.value_and_grad(objective, has_aux=True)(params["policy"], params),
         )
 
-    program = _cached(("modules",), lambda: fast_jit(run))
+    want = shared(("modules", digest(params)), lambda: numpy_tree(fast_jit(run)(params)))
     inputs["objective_draws"] = rollout_draws(objective_config(), objective_key, B, 2)
-    return numpy_tree(program(params)), inputs
+    return want, inputs
 
 
 @pytest.mark.parametrize("case", ["posterior-unit", "posterior-low-variance",
@@ -468,7 +470,7 @@ def test_presets_load_and_train_supported(preset):
     """Each preset loaded by the port's own ``load_yaml_config`` from its
     file passes ``check_train_supported`` and builds a train state as the
     JAX agent's (an EMA policy exactly where the anchor or EMA acting wants
-    one); ``ground_beliefs`` and faithful semantics still raise."""
+    one); faithful semantics still raises, ``ground_beliefs`` trains."""
     cfg, training, _ = load_yaml_config(str(preset_path(preset)))
     assert cfg.posterior_beliefs and cfg.act_from_posterior and cfg.imagined_value_targets
     assert cfg.num_dynamics_ensemble == 5
@@ -480,5 +482,7 @@ def test_presets_load_and_train_supported(preset):
     assert float(state.log_alpha) == pytest.approx(np.log(3e-4))
     cfg.posterior_beliefs = cfg.act_from_posterior = False
     cfg.ground_beliefs = True
-    with pytest.raises(NotImplementedError, match="ground_beliefs"):
+    agent.check_train_supported()
+    cfg.semantics.mode = "faithful"
+    with pytest.raises(NotImplementedError, match="faithful semantics"):
         agent.check_train_supported()

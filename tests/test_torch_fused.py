@@ -56,6 +56,7 @@ from torch_parity import (
     jax_train_state,
     jax_train_step,
     normal,
+    numpy_tree,
     record,
     start,
     t,
@@ -136,7 +137,8 @@ NUM_ENVS, STEPS, RING, EPS = 4, 3, 16, 0.1
 
 def test_train_fused_iteration_matches_jax_loop_body(monkeypatch):
     cfg = tiny_config(**PENDULUM)
-    jagent, jstates, agent, state, grads = start(cfg)
+    jagent, jstates = jax_agent(cfg), [jax_train_state(cfg)]
+    agent, state, grads = start(cfg, numpy_tree(jstates[0]))
     jenv = jenvs.make_jax_env("Pendulum-v1")
     env = tenvs.make_device_env("Pendulum-v1", device=CPU)
     key = jax.random.PRNGKey(50)
@@ -298,8 +300,8 @@ def test_build_run_config_matches_jax_example(case, tmp_path):
 def test_train_fused_main_on_the_cpu(tmp_path):
     """``main`` on the CPU: Pendulum with the sweep acting and a warm-start
     collect, two iterations with updates by ``train_epoch`` and an eval; its
-    JSONL log; the flags it does not port raise naming their ROADMAP item;
-    without a card and without ``--device cpu`` it raises."""
+    JSONL log; ``--video-every``, not ported, raises naming its ROADMAP
+    item; without a card and without ``--device cpu`` it raises."""
     base = ["--device", "cpu", "--num-envs", "4", "--steps-per-iter", "4",
             "--updates-per-iter", "2", "--iterations", "2", "--batch-size", "8",
             "--latent-dim", "8", "--hidden-dim", "32", "--diffusion-steps", "4",
@@ -308,13 +310,8 @@ def test_train_fused_main_on_the_cpu(tmp_path):
                                     "--eval-every", "1", "--eval-envs", "2"]) == 0
     lines = (tmp_path / "fused_Pendulum-v1.jsonl").read_text().splitlines()
     assert len(lines) == 2 and "fused/eval_return" in lines[-1] and "score_matching_loss" in lines[-1]
-    for flag, item in ((["--resume", "x"], "A8"), (["--checkpoint-dir", "x"], "A8"),
-                       (["--save-replay"], "A8"), (["--resume-refill-steps", "5"], "A8"),
-                       (["--video-every", "1"], "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_fused.main(base + flag)
-    with pytest.raises(NotImplementedError, match="ground_beliefs"):
-        train_fused.main(base + ["--ground-beliefs"])
+    with pytest.raises(NotImplementedError, match="A12"):
+        train_fused.main(base + ["--video-every", "1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_fused.main(base[2:])

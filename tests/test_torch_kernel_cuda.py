@@ -24,7 +24,10 @@ the same draws: Pendulum with the sweep and with warm starts (one sweep
 launch per env step), the exploration scale written between collects,
 HopperPlanar's physics, a step that cannot be captured, Ant3D's collect
 with the sweep, and a Humanoid3D step that runs with no host sync and
-replays equal to its eager run.
+replays equal to its eager run. The grounded-belief update in a graph
+against the eager loop (its differentiated sweep the plain one, counted in
+``PLAIN_RUNS``), the policy's decaying rate inside a graph, and a checkpoint
+round trip on the card with its next update.
 """
 
 import numpy as np
@@ -464,13 +467,14 @@ def test_kernel_follows_output_multiplier_in_place(cuda):
     np.testing.assert_allclose(again.cpu().numpy(), want.cpu().numpy(), **TOL[torch.float32])
 
 
-def _epoch_pair(cuda, latent=8, hidden=64, layers=2, steps=5, batch=16, chunk=256):
+def _epoch_pair(cuda, latent=8, hidden=64, layers=2, steps=5, batch=16, chunk=256, **flags):
     """Two agents with the same weights and fresh train states, and one
-    seeded ring of 200 transitions on the card."""
+    seeded ring of 200 transitions on the card; ``flags`` set on the
+    config."""
     cfg = ActiveInferenceConfig(
         observation_dim=OBS_DIM, action_dim=2, latent_dim=latent, hidden_dim=hidden,
         score_num_layers=layers, batch_size=batch,
-        diffusion=DiffusionConfig(num_diffusion_steps=steps),
+        diffusion=DiffusionConfig(num_diffusion_steps=steps), **flags,
     )
     agents = [DiffusionStateAgent(OBS_DIM, 2, cfg, TrainingConfig(epoch_chunk_updates=chunk))
               for _ in range(2)]
@@ -564,6 +568,80 @@ def test_graph_epoch_where_the_card_runs_the_plain_sweep(cuda):
     _assert_same_training(graph, gstate, eager, estate)
 
 
+def test_ground_graph_epoch_matches_the_eager_loop(cuda):
+    """``ground_beliefs``: six updates as graph replays against the eager
+    loop on the same draws (each step's sweep noise among them). The
+    differentiated sweep is the plain one, counted in ``PLAIN_RUNS`` once
+    per update, replay and capture's warm-up; the kernel never launches in
+    training; acting afterwards launches it once."""
+    (graph, eager), (gstate, estate), ring = _epoch_pair(cuda, ground_beliefs=True)
+    name = kernel_name("v1", torch.float32)
+    launches, plain = dict(LAUNCHES), dict(PLAIN_RUNS)
+    got = []
+    for _ in range(6):
+        gstate, metrics = graph.train_epoch(gstate, ring, 1)
+        got.append(metrics)
+    estate, want = _eager_updates(eager, estate, ring, 6)
+    assert LAUNCHES == launches
+    assert PLAIN_RUNS == {**plain, name: plain[name] + 12 + graph._epoch_graphs.captures}
+    for step, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            torch.testing.assert_close(g[k], w[k], **TOL[torch.float32], msg=f"{step} {k}")
+    _assert_same_training(graph, gstate, eager, estate)
+    graph.act(np.zeros((4, OBS_DIM), np.float32), torch.Generator(device=cuda).manual_seed(0))
+    assert LAUNCHES == {**launches, name: launches[name] + 1}
+
+
+def test_policy_rate_decays_inside_the_graph(cuda):
+    """``policy_lr_decay_steps`` 3: five updates as graph replays and as the
+    eager loop; after each, the policy's rate (a device tensor the update
+    writes from AdamW's device-side count) is the same in both and equals
+    the cosine schedule of that update's count; the same training."""
+    from active_inference_diffusion_torch.agents.base import CosineDecay
+
+    (graph, eager), (gstate, estate), ring = _epoch_pair(
+        cuda, policy_lr_decay_steps=3, policy_lr_final_scale=0.1)
+    schedule = CosineDecay(graph.config.learning_rate, 3, 0.1)
+    for step in range(5):
+        gstate, _ = graph.train_epoch(gstate, ring, 1)
+        estate, _ = _eager_updates(eager, estate, ring, 1)
+        rates = [float(s.optimizers["policy"].lr) for s in (gstate, estate)]
+        assert rates[0] == rates[1]
+        np.testing.assert_allclose(rates[0], float(schedule(torch.tensor(step))), rtol=1e-6)
+    _assert_same_training(graph, gstate, eager, estate)
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """Three graph updates, a checkpoint with the ring, a load into a fresh
+    agent and ring on the card: every tensor equal, and the next update of
+    both equal."""
+    from active_inference_diffusion_torch.utils import checkpoints
+
+    (first, other), (state, template), ring = _epoch_pair(cuda, ground_beliefs=True)
+    state, _ = first.train_epoch(state, ring, 3)
+    checkpoints.save_checkpoint(str(tmp_path), first, state, step=3, name="final",
+                                replay_state=ring)
+    fresh = DeviceReplayBuffer(256, (OBS_DIM,), 2).state
+    restored, meta = checkpoints.load_checkpoint(str(tmp_path / "final"), other, template,
+                                                 replay_template=fresh)
+    assert meta["replay_state"] is fresh and meta["total_steps"] == 3
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return all(same(a[k], b[k]) for k in a)
+        if isinstance(a, list):
+            return all(same(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+    assert same(checkpoints.train_state_dict(first, state),
+                checkpoints.train_state_dict(other, restored))
+    assert same(checkpoints.replay_state_dict(ring), checkpoints.replay_state_dict(fresh))
+    state, _ = first.train_epoch(state, ring, 1)
+    restored, _ = other.train_epoch(restored, fresh, 1)
+    assert same(checkpoints.train_state_dict(first, state),
+                checkpoints.train_state_dict(other, restored))
+
+
 def test_a_capture_that_fails_raises(cuda, monkeypatch):
     """A host read inside the captured update (an injected ``.item()``)
     makes ``train_epoch`` raise; nothing falls back to the eager loop, and
@@ -584,6 +662,45 @@ def test_a_capture_that_fails_raises(cuda, monkeypatch):
     assert state.step == 0 and agent.total_steps == 0
     assert all(o.count == 0 for o in state.optimizers.values())
     assert all(torch.equal(p, b) for p, b in zip(core.parameters(), before))
+
+
+def test_a_dead_graph_cycle_does_not_break_a_capture(cuda):
+    """A CUDA graph held only by a dead reference cycle, with the cyclic
+    collector set to run at every allocation: a capture through
+    ``capture_counted`` completes and replays (the collector is off while
+    it captures), and the cycle goes at the next collection after it."""
+    import gc
+    import weakref
+
+    from active_inference_diffusion_torch.agents.graphs import capture_counted
+
+    x = torch.zeros(4, device=cuda)
+    dead = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(dead):
+        x.add_(1.0)
+    cycle = {"graph": dead}
+    cycle["self"] = cycle
+    gone = weakref.ref(dead)
+    del cycle, dead
+    thresholds, alive = gc.get_threshold(), []
+
+    def fn():
+        alive.append(gone() is not None)
+        gc.set_threshold(1, 1, 1)  # the collector would run at the next allocations
+        for _ in range(50):
+            x.mul_(torch.ones(4, device=cuda))
+            [[] for _ in range(10)]
+
+    graph = torch.cuda.CUDAGraph()
+    try:
+        capture_counted(graph, fn)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert alive == [True]  # the dead cycle outlived the capture's start
+    graph.replay()
+    torch.cuda.synchronize()
+    gc.collect()
+    assert gone() is None
 
 
 def _dreamer_pair(cuda, warmup=3, batch=16):

@@ -28,7 +28,7 @@ from active_inference_diffusion_tpu.core import time_sampler as jtime
 from active_inference_diffusion_tpu.models import common as jcommon
 from active_inference_diffusion_tpu.models.decoders import reward_log_prob as jax_reward_log_prob
 from active_inference_diffusion_torch import configs as port_configs
-from active_inference_diffusion_torch.agents.base import PartitionOptimizer, cosine_decay_schedule
+from active_inference_diffusion_torch.agents.base import CosineDecay, PartitionOptimizer
 from active_inference_diffusion_torch.agents.state_agent import DiffusionStateAgent
 from active_inference_diffusion_torch.bridge import group_arrays, load_flax_group, load_jax_params
 from active_inference_diffusion_torch.core import diffusion as tdiff
@@ -341,7 +341,7 @@ def test_optimizer_step_matches_optax(case):
     params = {k: np.asarray(rng.standard_normal(s), np.float32) for k, s in shapes.items()}
     grad_scale = {"clipped": 1.0, "unclipped": 0.01, "cosine": 1.0}[case]
     lr, wd, clip = 1e-3, 1e-5, 0.5
-    schedule = cosine_decay_schedule(lr, 2, 0.1) if case == "cosine" else None
+    schedule = CosineDecay(lr, 2, 0.1) if case == "cosine" else None
     opt = optax.chain(
         optax.clip_by_global_norm(clip),
         optax.adamw(optax.cosine_decay_schedule(lr, 2, 0.1) if schedule else lr,

@@ -23,9 +23,10 @@ HumanoidStandup-v4, one static structure).
 
 Tracing the JAX engine is its cost (nested ``jacfwd``, ``jvp`` and
 ``grad`` of the forward kinematics), and tracing JAX's ``step_physics``
-costs minutes a tree. So each tree traces ONE program, for one env, with
-the model's float arrays as arguments: the pieces above and the limit
-projection at one state. It is compiled once at XLA optimisation level 0
+costs minutes a tree. So each tree traces the pieces above and the limit
+projection once, for one env at one state, with the model's float arrays
+as arguments, as three programs compiled side by side in threads
+(``jax_program``). They are compiled at XLA optimisation level 0
 and called per env, per configuration and per stage: ``qacc`` is held
 against a float64 solve of JAX's own M and forces (``rigid3d.py:669-682``),
 and the env step against a reference assembled from JAX's functions in the
@@ -49,6 +50,7 @@ the penalty contacts and the 8 sweeps, as for the planar engine.
 import argparse
 import functools
 import importlib.util
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -149,33 +151,45 @@ def states(name):
 @functools.lru_cache(maxsize=None)
 def jax_program(tree):
     """The tree's JAX program for one env: (float fields, qpos, qvel, ctrl)
-    -> the pieces and the limit projection. Traced and compiled once, at
-    float64."""
+    -> the pieces and the limit projection, as three programs (``bias_forces``,
+    ``com_frame_fields``, the rest). Traced once, at float64, each in
+    turn, the costliest first, and each compiled in a thread of its own as
+    soon as it is lowered (XLA compiles without Python's lock), so the
+    later traces run beside the earlier compiles."""
     name = TREES[tree][0]
     base = jrigid.extract_rigid3d_model(name)._replace(
         jnt_limited=np.asarray(MODELS[name]["jnt_limited"]))
     h = base.dt / base.n_substeps
 
-    def program(fields, qpos, qvel, ctrl):
-        model = base._replace(**dict(zip(_TRACED, fields)))
-        pos, rot = jrigid.forward_kinematics(model, qpos)
+    def model(fields):
+        return base._replace(**dict(zip(_TRACED, fields)))
+
+    def rest(fields, qpos, qvel, ctrl):
+        m = model(fields)
+        pos, rot = jrigid.forward_kinematics(m, qpos)
         return dict(
-            pos=pos, rot=rot, mass=jrigid.mass_matrix(model, qpos),
-            bias=jrigid.bias_forces(model, qpos, qvel),
-            contact=jrigid.contact_forces(model, qpos, qvel),
-            passive=jrigid.passive_and_limit_forces(model, qpos, qvel),
-            applied=jrigid.applied_torques(model, ctrl),
-            projection=jrigid.limit_projection(model, qpos, qvel, h),
-            **jrigid.com_frame_fields(model, qpos, qvel, ctrl),
+            pos=pos, rot=rot, mass=jrigid.mass_matrix(m, qpos),
+            contact=jrigid.contact_forces(m, qpos, qvel),
+            passive=jrigid.passive_and_limit_forces(m, qpos, qvel),
+            applied=jrigid.applied_torques(m, ctrl),
+            projection=jrigid.limit_projection(m, qpos, qvel, h),
         )
 
+    programs = (
+        lambda fields, qpos, qvel, ctrl: dict(bias=jrigid.bias_forces(model(fields), qpos, qvel)),
+        lambda fields, qpos, qvel, ctrl: jrigid.com_frame_fields(model(fields), qpos, qvel, ctrl),
+        rest,
+    )
     compiled = []
 
     def call(*args):
         if not compiled:
-            compiled.append(jax.jit(program).lower(*args).compile(
-                compiler_options={"xla_backend_optimization_level": 0}))
-        return {k: np.asarray(v) for k, v in compiled[0](*args).items()}
+            with ThreadPoolExecutor(len(programs)) as pool:
+                futures = [pool.submit(jax.jit(program).lower(*args).compile,
+                                       compiler_options={"xla_backend_optimization_level": 0})
+                           for program in programs]
+            compiled.extend(f.result() for f in futures)
+        return {k: np.asarray(v) for program in compiled for k, v in program(*args).items()}
 
     return call
 

@@ -9,10 +9,22 @@ Sizes follow tests/test_pallas_denoise.py.
 The JAX side is expensive to set up (tracing and compiling), so the JAX
 core, its parameters and the JAX agents are built once per process for each
 (config, seed) and shared by every test file (``jax_core_and_params``,
-``jax_agent``). The port runs on the CPU, asked for explicitly.
+``jax_agent``). What the JAX train steps compute (``chained_steps``,
+``chained_epochs``) is computed once per test run (``shared``): under
+pytest-xdist the cases of one comparison land on several workers, and the
+first to need it builds it while the others load its result. The port runs
+on the CPU, asked for explicitly.
 """
 
+import atexit
+import fcntl
+import hashlib
 import json
+import os
+import pickle
+import shutil
+import tempfile
+from pathlib import Path
 
 import flax.linen as fnn
 import jax
@@ -74,6 +86,7 @@ MODEL_TOL = dict(rtol=2e-4, atol=2e-5)
 BF16_TOL = dict(rtol=1e-2, atol=5e-3)
 
 _CACHE: dict = {}
+_RUN: dict = {}  # the run's directory of shared results, once made
 
 
 def _config_key(cfg) -> str:
@@ -84,6 +97,96 @@ def _cached(key, build):
     if key not in _CACHE:
         _CACHE[key] = build()
     return _CACHE[key]
+
+
+def _run_directory():
+    """The run's directory of shared results, ``torch_parity_<run id>`` in
+    the temporary directory (``PYTEST_XDIST_TESTRUNUID`` names the run);
+    None without xdist. A worker that uses it holds a shared lock on its
+    ``users`` file until it exits, and the last to exit removes it
+    (``_leave``)."""
+    if "dir" in _RUN:
+        return _RUN["dir"]
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if run is None:
+        return None
+    directory = Path(tempfile.gettempdir()) / f"torch_parity_{run}"
+    users_path = directory / "users"
+    while True:  # again where the last user removed it meanwhile
+        directory.mkdir(exist_ok=True)
+        try:
+            users = open(users_path, "a")
+        except FileNotFoundError:
+            continue
+        fcntl.flock(users, fcntl.LOCK_SH)
+        try:
+            if os.path.samestat(os.fstat(users.fileno()), os.stat(users_path)):
+                break
+        except FileNotFoundError:
+            pass
+        users.close()
+    atexit.register(_leave, directory, users)
+    _RUN["dir"] = directory
+    return directory
+
+
+def _leave(directory: Path, users) -> None:
+    """At a worker's exit: removes the run's directory unless another
+    worker still holds it."""
+    try:
+        fcntl.flock(users, fcntl.LOCK_EX | fcntl.LOCK_NB)
+    except BlockingIOError:
+        pass
+    else:
+        shutil.rmtree(directory, ignore_errors=True)
+    users.close()
+
+
+def _shared_paths(key):
+    """The lock file and the result file of ``key`` in the run's directory;
+    None without xdist."""
+    directory = _run_directory()
+    if directory is None:
+        return None
+    name = hashlib.sha256(repr(key).encode()).hexdigest()[:40]
+    return directory / f"{name}.lock", directory / f"{name}.pkl"
+
+
+def shared(key, build):
+    """``build()``'s result (numpy arrays, torch tensors and plain
+    containers), computed once per test run: under pytest-xdist the first
+    worker to ask builds it under a lock file and pickles it into the run's
+    directory, and the others wait for it and load it; without xdist, once
+    per process. ``key``'s repr names it; a build never asks for another
+    shared result, so no two workers wait on each other. The run's
+    directory goes when its last worker exits (``_run_directory``)."""
+    if key in _CACHE:
+        return _CACHE[key]
+    paths = _shared_paths(key)
+    if paths is None:
+        return _cached(key, build)
+    lock_path, path = paths
+    with open(lock_path, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            value = pickle.loads(path.read_bytes())
+        else:
+            value = build()
+            partial = path.with_suffix(".partial")  # whole or not at all
+            partial.write_bytes(pickle.dumps(value))
+            partial.rename(path)
+    _CACHE[key] = value
+    return value
+
+
+def digest(tree) -> str:
+    """A name for a tree of arrays by its structure and contents."""
+    h = hashlib.sha256(str(jax.tree_util.tree_structure(tree)).encode())
+    for leaf in jax.tree_util.tree_leaves(tree):
+        leaf = np.asarray(leaf)
+        h.update(f"{leaf.dtype}{leaf.shape}".encode())
+        h.update(leaf.tobytes())
+    return h.hexdigest()
 
 
 def tiny_config(**overrides) -> ActiveInferenceConfig:
@@ -106,6 +209,12 @@ def train_config() -> ActiveInferenceConfig:
     every other flag at its default; deterministic beliefs for exact
     parity."""
     return tiny_config(deterministic_beliefs=True, kl_weight=0.5)
+
+
+def ground_config() -> ActiveInferenceConfig:
+    """The flagship's training flags at the tiny widths with grounded,
+    stochastic beliefs (``ground_beliefs``, the sweep inside the loss)."""
+    return tiny_config(ground_beliefs=True, kl_weight=0.5)
 
 
 def port_config(cfg):
@@ -349,19 +458,28 @@ def draws_from_jax(jagent, state, batch):
     """Every draw of the JAX agent's ``train_step`` from ``state``: its key
     split in 7 (next, belief, elbo, policy, value, epistemic, encoder); the
     belief key's first half draws the sweep's start, or with
-    ``posterior_beliefs`` the belief key itself the posterior's eps; the
-    policy key draws the actor's rollout (the imagined objective's with
+    ``posterior_beliefs`` the belief key itself the posterior's eps; with
+    stochastic ``ground_beliefs`` its second half split per sweep step
+    draws each step's noise (``generate_beliefs``' scan); the policy key
+    draws the actor's rollout (the imagined objective's with
     ``imagined_value_targets``). One compiled program per agent and batch,
     which always draws the MINE update's too."""
     cfg, core = jagent.config, jagent.core
+    grounded = cfg.ground_beliefs and not cfg.deterministic_beliefs
+    k = cfg.diffusion.num_diffusion_steps
 
     def build():
         @fast_jit
         def draw(rng, params, time_importance):
             _, belief_key, elbo_key, policy_key, _, epi_key, _ = jax.random.split(rng, 7)
+            sweep = {}
             if not cfg.posterior_beliefs:
-                belief_key, _ = jax.random.split(belief_key)
+                belief_key, scan_key = jax.random.split(belief_key)
+                if grounded:
+                    sweep["sweep"] = jax.vmap(lambda key: jax.random.normal(key, (2 * batch, D)))(
+                        jax.random.split(scan_key, k))
             return dict(
+                **sweep,
                 belief=jax.random.normal(belief_key, (2 * batch, D)),
                 elbo=elbo_draws(core, params, elbo_key, time_importance, batch),
                 efe=efe_draws(cfg, policy_key, batch, 2 if cfg.imagined_value_targets else 3),
@@ -377,7 +495,7 @@ def draws_from_jax(jagent, state, batch):
         mine = MineDraws(d["mine"]["noise"], d["mine"]["directions"], d["mine"]["perms"],
                          EstimatorMasks(*d["mine"]["masks"]))
     return TrainDraws(d["belief"], torch.tensor(0, dtype=torch.int64), ElboDraws(**d["elbo"]),
-                      EfeDraws(**d["efe"]), mine)
+                      EfeDraws(**d["efe"]), mine, d.get("sweep"))
 
 
 # XLA:CPU compiles the tests' JAX programs at optimisation level 0: the same
@@ -510,80 +628,115 @@ def record(agent, state, metrics, jstate, jmetrics, draws, grads) -> dict:
     return out
 
 
-def start(cfg, jstate=None):
-    """The JAX agent and its step-0 state (``jax_train_state`` unless
-    given), the port's agent on the same state, and a dict that takes each
-    port optimizer's clipped gradients (partition -> numpy arrays) when it
-    steps."""
-    jagent = jax_agent(cfg)
-    jstate = jax_train_state(cfg) if jstate is None else jstate
+def start(cfg, jstate):
+    """The port's agent on the JAX state ``jstate`` (numpy), and a dict that
+    takes each port optimizer's clipped gradients (partition -> numpy
+    arrays) when it steps."""
     agent = DiffusionStateAgent(
         cfg.observation_dim, cfg.action_dim, port_config(cfg), port_config(TrainingConfig()),
         device=CPU,
     )
-    state = train_state_from_jax(agent, numpy_tree(jstate))
+    state = train_state_from_jax(agent, jstate)
     grads = {}
     for part, opt in state.optimizers.items():
         opt.adamw.register_step_pre_hook(
             lambda adamw, args, kwargs, part=part, params=opt.params: grads.__setitem__(
                 part, [q.grad.detach().numpy().copy() for q in params]))
-    return jagent, [jstate], agent, state, grads
+    return agent, state, grads
 
 
-def chained_steps(cfg, jstate=None, updates: int = 2):
-    """``updates`` chained ``train_step``s of both agents from one state,
-    a batch each (``make_batch``), the port on the JAX step's draws.
-    Returns (the port's agent, the JAX states, the records with each
-    update's batch and draws)."""
-    jagent, jstates, agent, state, grads = start(cfg, jstate)
-    out = []
-    for i in range(updates):
-        batch = make_batch(10 * i + 3)
-        draws = draws_from_jax(jagent, jstates[-1], B)
-        jstate, jmetrics = jax_train_step(jagent, jstates[-1],
-                                          {k: jnp.asarray(v) for k, v in batch.items()})
-        jstates.append(jstate)
-        state, metrics = agent.train_step_from_draws(
-            state, {k: t(v) for k, v in batch.items()}, draws
-        )
-        out.append(record(agent, state, metrics, jstate, jmetrics, draws, grads))
-        out[-1].update(batch=batch, draws=draws)
-    return agent, jstates, out
+def jax_side(cfg, jstate=None):
+    """What the JAX train step of ``cfg`` computes for the comparisons,
+    from ``jstate`` (``jax_train_state`` unless given), once per test run
+    (``shared``), so one process traces the program: ``"steps"``, two
+    chained ``train_step``s on a batch each (``make_batch``), and
+    ``"epoch"``, the JAX ``train_epoch``'s scan body three times over a ring
+    of ``epoch_data`` (``replay_sample`` on ``fold_in(k, 0)``, then the
+    train step). Each is (the states as numpy, from the first; per update
+    its batch or ring indices, its draws and its metrics)."""
+    return shared(jax_side_key(cfg, jstate), lambda: build_jax_side(cfg, jstate))
 
 
-def chained_epochs(cfg, jstate=None, updates: int = 3):
-    """``updates`` chained calls of the port's ``train_epoch`` of one update
-    each, over a device ring on the CPU, against the JAX ``train_epoch``'s
-    scan body on the same transitions: ``replay_sample`` on ``fold_in(k,
-    0)``, then the JAX train step (the program ``chained_steps`` compiles).
-    The port's ring indices are JAX's ``randint`` draw on that key, its
-    update's draws ``draws_from_jax``."""
+def jax_side_key(cfg, jstate=None):
+    return ("train step", _config_key(cfg), "default" if jstate is None else digest(jstate))
+
+
+def build_jax_side(cfg, jstate=None):
+    """``jax_side``'s result, built here."""
     from active_inference_diffusion_tpu.data import replay as jreplay
-    from active_inference_diffusion_torch.data.replay import DeviceReplayBuffer
 
-    jagent, jstates, agent, state, grads = start(cfg, jstate)
-    rng = np.random.default_rng(7)
-    data = (normal(70, 20, OBS_DIM), np.tanh(normal(71, 20, ACT_DIM)), 2.0 * normal(72, 20),
-            normal(73, 20, OBS_DIM), rng.random(20) < 0.25)
+    jagent = jax_agent(cfg)
+    first = jax_train_state(cfg) if jstate is None else jstate
+    states, steps = [first], []
+    for i in range(2):
+        batch = make_batch(10 * i + 3)
+        draws = draws_from_jax(jagent, states[-1], B)
+        jnext, jmetrics = jax_train_step(jagent, states[-1],
+                                         {k: jnp.asarray(v) for k, v in batch.items()})
+        states.append(jnext)
+        steps.append(dict(batch=batch, draws=draws, jmetrics=numpy_tree(jmetrics)))
+    epoch_states, updates = [first], []
     jring = jreplay.replay_add_batch(jreplay.replay_init(RING, (OBS_DIM,), ACT_DIM),
-                                     *(jnp.asarray(x) for x in data))
-    ring = DeviceReplayBuffer(RING, (OBS_DIM,), ACT_DIM, device=CPU)
-    ring.add_batch(*data)
-    pending = []
-    agent.draw_update = lambda state, replay_state, batch_size: pending.pop(0)
-    out = []
-    for u in range(updates):
+                                     *(jnp.asarray(x) for x in epoch_data()))
+    for u in range(3):
         key = jax.random.fold_in(jax.random.PRNGKey(60 + u), 0)
         indices = jax.random.randint(key, (B,), 0, jnp.maximum(jring.size, 1))
         jbatch = jreplay.replay_sample(jring, key, B)
         jbatch["dones"] = jbatch["dones"].astype(jnp.float32)  # the program's input type
-        draws = draws_from_jax(jagent, jstates[-1], B)
-        jstate, jmetrics = jax_train_step(jagent, jstates[-1], jbatch)
-        jstates.append(jstate)
-        pending.append((torch.from_numpy(np.asarray(indices, np.int64)), draws))
+        draws = draws_from_jax(jagent, epoch_states[-1], B)
+        jnext, jmetrics = jax_train_step(jagent, epoch_states[-1], jbatch)
+        epoch_states.append(jnext)
+        updates.append(dict(indices=np.asarray(indices, np.int64), draws=draws,
+                            jmetrics=numpy_tree(jmetrics)))
+    return {"steps": ([numpy_tree(s) for s in states], steps),
+            "epoch": ([numpy_tree(s) for s in epoch_states], updates)}
+
+
+def chained_steps(cfg, jstate=None):
+    """Two chained ``train_step``s of both agents from one state, a batch
+    each (``make_batch``), the port on the JAX step's draws (``jax_side``).
+    Returns (the port's agent, the JAX states as numpy, the records with
+    each update's batch and draws)."""
+    jstates, steps = jax_side(cfg, jstate)["steps"]
+    agent, state, grads = start(cfg, jstates[0])
+    out = []
+    for i, step in enumerate(steps):
+        state, metrics = agent.train_step_from_draws(
+            state, {k: t(v) for k, v in step["batch"].items()}, step["draws"]
+        )
+        out.append(record(agent, state, metrics, jstates[i + 1], step["jmetrics"],
+                          step["draws"], grads))
+        out[-1].update(batch=step["batch"], draws=step["draws"])
+    return agent, jstates, out
+
+
+def epoch_data():
+    """The epoch's transitions: 20, which wrap the ring of ``RING``."""
+    rng = np.random.default_rng(7)
+    return (normal(70, 20, OBS_DIM), np.tanh(normal(71, 20, ACT_DIM)), 2.0 * normal(72, 20),
+            normal(73, 20, OBS_DIM), rng.random(20) < 0.25)
+
+
+def chained_epochs(cfg, jstate=None):
+    """Three chained calls of the port's ``train_epoch`` of one update each,
+    over a device ring on the CPU, against the JAX ``train_epoch``'s scan
+    body (``jax_side``): the port's ring indices are JAX's ``randint`` draw,
+    its update's draws ``draws_from_jax``."""
+    from active_inference_diffusion_torch.data.replay import DeviceReplayBuffer
+
+    jstates, updates = jax_side(cfg, jstate)["epoch"]
+    agent, state, grads = start(cfg, jstates[0])
+    ring = DeviceReplayBuffer(RING, (OBS_DIM,), ACT_DIM, device=CPU)
+    ring.add_batch(*epoch_data())
+    pending = []
+    agent.draw_update = lambda state, replay_state, batch_size: pending.pop(0)
+    out = []
+    for u, update in enumerate(updates):
+        pending.append((torch.from_numpy(update["indices"]), update["draws"]))
         state, metrics = agent.train_epoch(state, ring.state, 1)
         assert not pending and agent.total_steps == u + 1
-        out.append(record(agent, state, metrics, jstate, jmetrics, draws, grads))
+        out.append(record(agent, state, metrics, jstates[u + 1], update["jmetrics"],
+                          update["draws"], grads))
     return agent, jstates, out
 
 
@@ -648,3 +801,4 @@ def check_update(agent, jstates, out, step):
             assert (err <= bound).all(), (part, k, float((err - bound).max()))
         print(f"{part}: {small} of {total} elements under the sign rule")
         assert small * 100 < total, (part, small, total)
+
